@@ -1,0 +1,179 @@
+"""Stereo frame frontend: ORB on the left and right images + stereo matching.
+
+Port of ``pointslot_tpu/ops/frontend.py::StereoFrontend`` (the ungated
+single-pair path: ``_image_stage``, ``_frontend``, ``_stereo_from_patches``
+and its ``_stereo_pre`` / ``_stereo_sad`` / ``_stereo_fine`` phases).
+The patch gather runs four times per pair: left keypoints, right keypoints,
+right SAD windows and the level-0 fine windows.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from pointslot_torch.config import ORBConfig
+from pointslot_torch.convert import to_tensor
+from pointslot_torch.device import resolve_device
+from pointslot_torch.ops import stereo as st
+from pointslot_torch.ops.orb import FeatureSet, ORBExtractor
+from pointslot_torch.ops.patch import extract_patches_stack, stack_pyramid_for_patches
+
+
+class StereoFrame(NamedTuple):
+    """Everything the tracker needs about one stereo frame."""
+
+    xy: torch.Tensor        # (N, 2) left keypoints, level-0 coords
+    response: torch.Tensor  # (N,)
+    angle: torch.Tensor     # (N,)
+    level: torch.Tensor     # (N,) int32
+    desc: torch.Tensor      # (N, 8) int32 words
+    valid: torch.Tensor     # (N,) bool
+    u_right: torch.Tensor   # (N,) float32 (-1 = no stereo)
+    depth: torch.Tensor     # (N,) float32 (-1 = no stereo)
+
+
+class StereoFrontend:
+    """(left, right) -> StereoFrame at fixed geometry on one device."""
+
+    def __init__(self, height: int, width: int, fx: float, bf: float,
+                 config: Optional[ORBConfig] = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.config = config or ORBConfig()
+        self.extractor = ORBExtractor(height, width, self.config, device=self.device)
+        self.fx = float(fx)
+        self.bf = float(bf)
+        cfg = self.config
+        self._scales = torch.tensor(
+            [cfg.scale_factor ** i for i in range(cfg.n_levels)],
+            dtype=torch.float32).to(self.device)
+        self._lshapes = torch.tensor(self.extractor.shapes, dtype=torch.int32).to(self.device)
+
+    def __call__(self, left, right) -> StereoFrame:
+        return self.run(to_tensor(left, None, self.device), to_tensor(right, None, self.device))
+
+    def run(self, left: torch.Tensor, right: torch.Tensor) -> StereoFrame:
+        """The frontend on device tensors (H, W), any real dtype."""
+        return StereoFrame(*self._frontend(left, right))
+
+    # ------------------------------------------------------------------
+    def _image_stage(self, imgs: torch.Tensor):
+        """Pyramid + dense FAST scores over a leading axis of images."""
+        ext = self.extractor
+        levels = ext.pyramid(imgs.to(torch.float32))
+        return levels, ext.scores(levels)
+
+    def _frontend(self, left: torch.Tensor, right: torch.Tensor):
+        ext = self.extractor
+        both = torch.stack([left.to(torch.float32), right.to(torch.float32)])
+        levels, scores = self._image_stage(both)
+        # selection runs on both images at once; the patch gather runs per
+        # image (one launch each), as the reference's single-pair path does
+        xyl, xy, resp, lvl, valid = ext.detect(scores)
+        canvas = stack_pyramid_for_patches(levels)          # (2, L, Hp, Wp)
+        patches_l, angle_l, desc_l = ext.describe(canvas[0], xyl[0])
+        _, angle_r, desc_r = ext.describe(canvas[1], xyl[1])
+        fl = FeatureSet(xy[0], resp[0], angle_l, lvl[0], desc_l, valid[0])
+        fr = FeatureSet(xy[1], resp[1], angle_r, lvl[1], desc_r, valid[1])
+        u_right, depth, _ = self._stereo_from_patches(fl, fr, canvas, patches_l)
+        return (fl.xy, fl.response, fl.angle, fl.level, fl.desc, fl.valid,
+                u_right, depth)
+
+    def _stereo_from_patches(self, fl: FeatureSet, fr: FeatureSet,
+                             canvas: torch.Tensor, patch_l: torch.Tensor):
+        """Stereo matching with the SAD windows fetched by the patch gather.
+        The left windows are the extractor's own patches; the right
+        candidate windows and the level-0 fine windows are gathered here."""
+        pre = self._stereo_pre(fl, fr)
+        patch_r = extract_patches_stack(canvas[1], pre["xyl_r"])
+        mid = self._stereo_sad(fl, pre, patch_l, patch_r)
+        if self.config.stereo_fine_min_level >= len(self.extractor.budgets):
+            return mid["u_right"], mid["depth"], mid["valid_st"]
+        # one launch for both level-0 images: the left image is canvas row
+        # 0, the right image row 1
+        both = extract_patches_stack(canvas[:, 0].contiguous(), mid["xyl_fine"])
+        return self._stereo_fine(fl, mid, both)
+
+    def _stereo_pre(self, fl: FeatureSet, fr: FeatureSet):
+        """Candidate match + rounded per-level window coords."""
+        ext = self.extractor
+        best_idx, matched = st.stereo_candidates(
+            fl.xy, fl.level, fl.desc, fl.valid,
+            fr.xy, fr.level, fr.desc, fr.valid,
+            self._scales, self.fx, th_orb=self.config.stereo_match_th,
+        )
+        ul, yl = fl.xy[:, 0], fl.xy[:, 1]
+        inv_scale = 1.0 / self._scales[fl.level.long()]
+        u0r = fr.xy[:, 0].gather(0, best_idx.long())
+        scaled_ul = torch.round(ul * inv_scale).to(torch.int32)
+        scaled_vl = torch.round(yl * inv_scale).to(torch.int32)
+        scaled_ur = torch.round(u0r * inv_scale).to(torch.int32)
+        xyl_r = []
+        offset = 0
+        for lvl, budget in enumerate(ext.budgets):
+            seg = slice(offset, offset + budget)
+            offset += budget
+            h, w = ext.shapes[lvl]
+            xyl_r.append(torch.stack([
+                torch.clamp(scaled_ur[seg], 0, w - 1),
+                torch.clamp(scaled_vl[seg], 0, h - 1),
+                torch.full((budget,), lvl, dtype=torch.int32, device=ul.device),
+            ], dim=1))
+        return dict(matched=matched, scaled_ul=scaled_ul, scaled_vl=scaled_vl,
+                    scaled_ur=scaled_ur, xyl_r=torch.cat(xyl_r))
+
+    def _stereo_sad(self, fl: FeatureSet, pre, patch_l, patch_r):
+        """SAD refine over the fetched windows + the level-0 fine-refine
+        window coords (level column 0 = left image, 1 = right image)."""
+        ext = self.extractor
+        W, L = st._W, st._L
+        ul, yl = fl.xy[:, 0], fl.xy[:, 1]
+        scaled_ul, scaled_vl = pre["scaled_ul"], pre["scaled_vl"]
+        scaled_ur = pre["scaled_ur"]
+        lvl = fl.level.long()
+        lh = self._lshapes[lvl, 0]
+        lw = self._lshapes[lvl, 1]
+        in_bounds = (
+            (scaled_vl - W >= 0) & (scaled_vl + W < lh)
+            & (scaled_ul - W >= 0) & (scaled_ul + W < lw)
+            & (scaled_ur - W - L >= 0) & (scaled_ur + W + L < lw)
+        )
+        u_right, depth, valid_st = st.sad_refine_from_patches(
+            patch_l, patch_r, scaled_ul, scaled_vl, scaled_ur,
+            ul, pre["matched"], in_bounds, self._scales[lvl], self.fx, self.bf,
+        )
+        out = dict(u_right=u_right, depth=depth, valid_st=valid_st)
+        fine_min = self.config.stereo_fine_min_level
+        if fine_min < len(ext.budgets):
+            # the per-level slot layout makes the coarse tail a static slice
+            s0 = sum(ext.budgets[:fine_min])
+            H0, W0 = ext.shapes[0]
+            u0 = torch.round(u_right[s0:]).to(torch.int32)
+            v0 = torch.round(yl[s0:]).to(torch.int32)
+            ulr = torch.round(ul[s0:]).to(torch.int32)
+            margin = W + L + 1
+            out["fine_inb"] = (
+                (v0 - margin >= 0) & (v0 + margin < H0)
+                & (ulr - margin >= 0) & (ulr + margin < W0)
+                & (u0 - margin >= 0) & (u0 + margin < W0)
+            )
+            out["xyl_fine"] = torch.cat([
+                torch.stack([torch.clamp(ulr, 0, W0 - 1), torch.clamp(v0, 0, H0 - 1),
+                             torch.zeros_like(ulr)], dim=1),
+                torch.stack([torch.clamp(u0, 0, W0 - 1), torch.clamp(v0, 0, H0 - 1),
+                             torch.ones_like(u0)], dim=1),
+            ]).to(torch.int32)
+        return out
+
+    def _stereo_fine(self, fl: FeatureSet, mid, both_patches):
+        """Apply the level-0 fine refine given its fetched windows."""
+        s0 = sum(self.extractor.budgets[:self.config.stereo_fine_min_level])
+        u_right, depth, valid_st = mid["u_right"], mid["depth"], mid["valid_st"]
+        ul = fl.xy[:, 0]
+        n_t = mid["xyl_fine"].shape[0] // 2
+        uf, df, _ = st.fine_refine_from_patches(
+            both_patches[:n_t], both_patches[n_t:], ul[s0:], u_right[s0:],
+            depth[s0:], valid_st[s0:] & mid["fine_inb"], self.bf,
+        )
+        return (torch.cat([u_right[:s0], uf]), torch.cat([depth[:s0], df]), valid_st)

@@ -1,0 +1,35 @@
+"""Hamming distance on 256-bit ORB descriptors held as (N, 8) int32 words.
+
+Port of ``pointslot_tpu/ops/hamming.py`` (popcount path). The words carry
+the same bits as the reference's uint32 words. torch has no popcount op, so
+it is SWAR bit arithmetic on int32: the sign bit is counted on its own and
+the low 31 bits are folded without any intermediate reaching 2**31, and
+every right shift is masked because int32 ``>>`` is arithmetic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of each int32 word -> int32 in [0, 32]."""
+    sign = (x < 0).to(torch.int32)
+    v = x & 0x7FFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    return (v & 0x3F) + sign
+
+
+def hamming_table_popcount(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """(..., N, 8) x (..., M, 8) int32 words -> (..., N, M) int32 distances."""
+    x = desc_a[..., :, None, :] ^ desc_b[..., None, :, :]
+    return popcount32(x).sum(dim=-1, dtype=torch.int32)
+
+
+def hamming_pairwise(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """Row-wise distance of aligned pairs: (N, 8), (N, 8) -> (N,) int32."""
+    return popcount32(desc_a ^ desc_b).sum(dim=-1, dtype=torch.int32)

@@ -1,0 +1,127 @@
+"""Tests of the port that need a CUDA card: the hand-written kernel against
+its plain version, and the fused step on the card against the port's CPU
+path. Without a card each test skips with its reason; on the card run
+
+    python -m pytest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pointslot_torch import convert
+from pointslot_torch.config import CameraConfig, SystemConfig
+from pointslot_torch.ops import patch
+from pointslot_torch.ops.fused_track import FusedFrameStep
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
+@pytest.mark.parametrize("L, K", [(8, 1000), (2, 266)])
+def test_patch_gather_kernel_equals_plain(L, K):
+    """A pure copy: the kernel equals the plain gather exactly, at the
+    path's canvas (L, 439, 1498), clamped edge centres included."""
+    _need_card()
+    g = torch.Generator().manual_seed(K)
+    canvas = torch.rand((L, 439, 1498), generator=g).cuda() * 255
+    Hp, Wp = canvas.shape[1:]
+    xyl = torch.stack([torch.randint(0, 1242, (K,), generator=g),
+                       torch.randint(0, 375, (K,), generator=g),
+                       torch.randint(0, L, (K,), generator=g)], 1)
+    edges = torch.tensor([[0, 0, 0], [Wp - 1, Hp - 1, L - 1], [Wp + 5, Hp + 9, L],
+                          [-1, -1, 0], [-Wp - 3, -2, 1], [3, 4, -1]])
+    xyl = torch.cat([xyl, edges]).to(torch.int32).cuda()
+    before = patch.LAUNCHES
+    got = patch.extract_patches_stack(canvas, xyl)
+    assert patch.LAUNCHES == before + 1
+    want = patch.extract_patches_stack_plain(canvas, xyl)
+    torch.cuda.synchronize()
+    assert got.shape == (K + 6, 48, 48)
+    assert torch.equal(got, want)
+
+
+def test_patch_gather_rejects_bad_input():
+    _need_card()
+    canvas = torch.zeros((2, 64, 64), device="cuda")
+    xyl = torch.zeros((4, 3), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        patch.extract_patches_stack(canvas.double(), xyl)
+    with pytest.raises(TypeError):
+        patch.extract_patches_stack(canvas, xyl.long())
+    with pytest.raises(ValueError):
+        patch.extract_patches_stack(canvas, xyl[:, :2].contiguous())
+    with pytest.raises(ValueError):
+        patch.extract_patches_stack(canvas.transpose(1, 2), xyl)
+
+
+def test_fused_frame_step_cuda_matches_cpu():
+    """The whole step on the card against the port's CPU path at 512x256:
+    four kernel launches per frame; translations within 1e-3 m and
+    keypoints equal but for float32-rounding ties (bounded at 0.5 %)."""
+    _need_card()
+    cam = CameraConfig(width=512, height=256, fx=300.0, fy=300.0, cx=256.0, cy=128.0, bf=60.0)
+    cfg = SystemConfig().replace(camera=cam)
+    rng = np.random.default_rng(3)
+    left = rng.integers(0, 255, (256, 512), dtype=np.uint8)
+    right = np.roll(left, -4, axis=1)
+    eye = np.eye(4, dtype=np.float32)
+    M, O, Mo = 256, 2, 64
+    pos = rng.uniform([-5, -2, 2], [5, 2, 20], (M, 3)).astype(np.float32)
+    dsc = rng.integers(0, 2**32, (M, 8), dtype=np.uint32)
+    opos = rng.uniform(-1, 1, (O, Mo, 3)).astype(np.float32)
+    odesc = rng.integers(0, 2**32, (O, Mo, 8), dtype=np.uint32)
+    oT = np.tile(eye, (O, 1, 1))
+    oT[:, 2, 3] = 8.0
+    args = (left, right, eye, eye, pos, dsc, np.zeros(M, np.int32), np.ones(M, bool),
+            opos, odesc, np.ones((O, Mo), bool), oT)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        step = FusedFrameStep(cfg, device=dev)
+        before = patch.LAUNCHES
+        r, To, _, n = step(*args)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert patch.LAUNCHES == before + 4
+            assert r.T_cw.device.type == "cuda"
+        out[dev] = (convert.to_numpy(r), To.cpu().numpy())
+    (g, gTo), (c, cTo) = out["cuda"], out["cpu"]
+    same = (g.xy == c.xy).all(axis=1) & (g.level == c.level) & (g.valid == c.valid)
+    assert (~same).sum() <= 0.005 * len(same)
+    np.testing.assert_allclose(g.T_cw[:3, 3], c.T_cw[:3, 3], atol=1e-3)
+    np.testing.assert_allclose(gTo[:, :3, 3], cTo[:, :3, 3], atol=1e-3)
+
+
+def test_step_has_no_host_sync():
+    """The step on device tensors makes no synchronising call (no .item(),
+    no device-to-host copy, no error check that waits for the card), so it
+    can be captured in a CUDA graph: sync debug mode "error" raises on any."""
+    _need_card()
+    cam = CameraConfig(width=512, height=256, fx=300.0, fy=300.0, cx=256.0, cy=128.0, bf=60.0)
+    full = FusedFrameStep(SystemConfig().replace(camera=cam), device="cuda")
+    rng = np.random.default_rng(5)
+    left = rng.integers(0, 255, (256, 512), dtype=np.uint8)
+    d = full.device
+    args = [convert.to_tensor(x, None, d) for x in (left, np.roll(left, -4, axis=1))]
+    eye = torch.eye(4, device=d)
+    M, O, Mo = 256, 2, 64
+    tables = convert.map_tables(rng.uniform([-5, -2, 2], [5, 2, 20], (M, 3)),
+                                rng.integers(0, 2**32, (M, 8), dtype=np.uint32),
+                                np.zeros(M), np.ones(M, bool), d)
+    objects = convert.object_tables(rng.uniform(-1, 1, (O, Mo, 3)),
+                                    rng.integers(0, 2**32, (O, Mo, 8), dtype=np.uint32),
+                                    np.ones((O, Mo), bool), d)
+    To = eye.expand(O, 4, 4).clone()
+    To[:, 2, 3] = 8.0
+    vo = eye.expand(O, 4, 4).clone()
+    full.step.run(*args, eye, eye, *tables)          # first call: library loads, handles
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r = full.step.run(*args, eye, eye, *tables)
+        full.phase.run(r.xy, r.level, r.desc, r.valid, r.depth, r.u_right, *objects, To, vo)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
