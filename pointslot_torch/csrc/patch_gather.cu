@@ -1,68 +1,150 @@
 // patch_gather.cu: batched 48x48 patch gather for the ORB / stereo frontend.
 //
 // Replaces the TPU kernel pointslot_tpu/ops/pallas_patch.py::_patch_kernel_stack
-// (body at :100, pallas_call at :203). It computes
+// (body at :100, pallas_call at :203). That kernel reads a canvas: the
+// pyramid levels zero-padded onto level 0's (h + 64, w + 256) frame and
+// stacked. It computes
 //     out[k, i, j] = canvas[l_k, y_k + i, x_k + j]      for i, j < 48,
 // with every index clamped the way JAX indexing clamps it: a negative index
 // counts from the end of its axis, then the index is clipped to the axis.
 //
-// The TPU kernel DMAs an aligned (56 or 64) x 256 superset per patch and cuts
-// the window out with two one-hot shift matmuls, because Mosaic DMAs must be
-// tile-aligned. None of that applies on Hopper. Here one warp copies one
-// patch: its lanes walk the 2304 output floats in order, so every store is
-// coalesced and the loads of a warp cover whole 48-float canvas rows. A block
-// holds 8 warps (8 patches); there is no chunking and no shared memory.
+// Here no canvas exists. The kernel takes the L planes where they lie (each
+// with its own height, width and row pitch) and the canvas size (Hp, Wp),
+// and computes the same thing: canvas pixel (l, r, c) is
+// plane_l[r - 24, c - 24] inside the plane and 0 in the padding. The padding
+// is written as zeros during the copy and never read.
 //
-// Bound: bytes. For K patches the kernel writes K * 48 * 48 * 4 bytes and reads
-// at most as many canvas bytes (fewer where patches overlap), plus 12 bytes of
-// coordinates per patch: at K = 1000 about 18.4 MB, about 5.5 us at the H100's
-// 3.35 TB/s.
+// Bound: bytes. A patch moves 9216 bytes out and at most as many in, with
+// no arithmetic. The earlier design (one warp per patch, a chain of 72
+// dependent scalar load-store round trips per lane) was bound by latency,
+// not bytes: its time did not move with K. This design keeps every load of
+// a patch in flight at once:
+// - one 256-thread block per patch, whose tile (2304 floats, 9216 bytes)
+//   lives in shared memory; 8 blocks fit an SM, so 1000 patches run in one
+//   wave on 132 SMs;
+// - each thread issues its 9 four-byte cp.async copies into the tile, the
+//   zero-fill form (src-size 0) for padding pixels, then waits once;
+// - one thread writes the tile to out[k] with one bulk asynchronous copy
+//   (cp.async.bulk.global.shared::cta), or, as the alternative kept for
+//   measurement, the block writes it with 16-byte vector stores.
+//
+// Why not TMA tile loads: cuTensorMapEncodeTiled needs row pitches that are
+// multiples of 16 bytes. The KITTI level pitches (1242, 1035, 862, 719,
+// 599, 499, 416, 347 floats) are not, but for 416, and re-pitching the
+// pyramid's matmul outputs would reach into the pyramid and FAST code for a
+// 9 KB tile. The canvas's own pitch (1498 floats) is not aligned either.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
 constexpr int kPatch = 48;
-constexpr int kWarpsPerBlock = 8;  // one patch per warp
+constexpr int kPad = kPatch / 2;            // the canvas's top and left padding
+constexpr int kTile = kPatch * kPatch;      // floats per patch
+constexpr int kThreads = 256;
+constexpr int kPerThread = kTile / kThreads;
+constexpr int kMaxPlanes = 8;
+static_assert(kTile % kThreads == 0, "a block copies whole tiles");
+static_assert((kTile * 4) % 16 == 0, "bulk copies move multiples of 16 bytes");
+
+struct Planes {
+  const float* ptr[kMaxPlanes];
+  long long pitch[kMaxPlanes];  // row stride, floats
+  int h[kMaxPlanes];
+  int w[kMaxPlanes];
+  int n;                        // L
+  int Hp, Wp;                   // the canvas the planes stand for
+};
 
 __device__ __forceinline__ int clamp_index(int i, int n) {
   if (i < 0) i += n;
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-patch_gather_kernel(const float* __restrict__ canvas, const int* __restrict__ xyl,
-                    float* __restrict__ out, int K, int L, int Hp, int Wp) {
-  const int k = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  if (k >= K) return;
-  const int lane = threadIdx.x % 32;
-  const int x = xyl[3 * k];
-  const int y = xyl[3 * k + 1];
-  const int l = clamp_index(xyl[3 * k + 2], L);
-  const float* plane = canvas + static_cast<size_t>(l) * Hp * Wp;
-  float* dst = out + static_cast<size_t>(k) * kPatch * kPatch;
-  for (int e = lane; e < kPatch * kPatch; e += 32) {
+__device__ __forceinline__ void copy4_async(uint32_t dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+template <bool kBulkStore>
+__global__ void __launch_bounds__(kThreads, 8)
+patch_gather_kernel(const Planes p, const int* __restrict__ xyl, float* __restrict__ out) {
+  __shared__ __align__(128) float tile[kTile];
+  const int k = blockIdx.x;
+  const int x = __ldg(xyl + 3 * k);
+  const int y = __ldg(xyl + 3 * k + 1);
+  const int l = clamp_index(__ldg(xyl + 3 * k + 2), p.n);
+  const float* plane = p.ptr[l];
+  const long long pitch = p.pitch[l];
+  const unsigned h = p.h[l], w = p.w[l];
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+
+#pragma unroll
+  for (int n = 0; n < kPerThread; ++n) {
+    const int e = threadIdx.x + n * kThreads;
     const int i = e / kPatch;
     const int j = e - i * kPatch;
-    const int r = clamp_index(y + i, Hp);
-    const int c = clamp_index(x + j, Wp);
-    dst[e] = __ldg(plane + static_cast<size_t>(r) * Wp + c);
+    const int r = clamp_index(y + i, p.Hp) - kPad;
+    const int c = clamp_index(x + j, p.Wp) - kPad;
+    const bool inside = static_cast<unsigned>(r) < h && static_cast<unsigned>(c) < w;
+    const float* src = inside ? plane + r * pitch + c : plane;
+    copy4_async(base + 4u * e, src, inside ? 4 : 0);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  float* dst = out + static_cast<size_t>(k) * kTile;
+  if constexpr (kBulkStore) {
+    // the tile was written through the generic proxy; the bulk copy reads
+    // it through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                   :: "l"(dst), "r"(base), "r"(kTile * 4) : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  } else {
+    __syncthreads();
+    const float4* src4 = reinterpret_cast<const float4*>(tile);
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int v = threadIdx.x; v < kTile / 4; v += kThreads) dst4[v] = src4[v];
   }
 }
 
 }  // namespace
 
-// canvas: (L, Hp, Wp) float32, xyl: (K, 3) int32 (x, y, level), out: (K, 48, 48)
-// float32; all contiguous on the device. Launches on `stream` and returns
-// cudaGetLastError() (0 on success). K must be positive.
-extern "C" int patch_gather(const void* canvas, const void* xyl, void* out,
-                            int K, int L, int Hp, int Wp, void* stream) {
-  const int blocks = (K + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  patch_gather_kernel<<<blocks, 32 * kWarpsPerBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(canvas), static_cast<const int*>(xyl),
-      static_cast<float*>(out), K, L, Hp, Wp);
+// planes/pitches/heights/widths: L host arrays describing the planes (device
+// pointers to float32, row pitch in floats); (Hp, Wp): the canvas size;
+// xyl: (K, 3) int32 on the device (x, y, plane); out: (K, 48, 48) float32 on
+// the device, 16-byte aligned. bulk_store != 0 writes tiles with one bulk
+// copy, else with 16-byte stores. Launches on `stream` and returns
+// cudaGetLastError() (0 on success). K must be positive, 1 <= L <= 8.
+extern "C" int patch_gather(const void* const* planes, const long long* pitches,
+                            const int* heights, const int* widths, int L, int Hp, int Wp,
+                            const void* xyl, void* out, int K, int bulk_store,
+                            void* stream) {
+  if (L < 1 || L > kMaxPlanes || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Planes p{};
+  for (int l = 0; l < L; ++l) {
+    p.ptr[l] = static_cast<const float*>(planes[l]);
+    p.pitch[l] = pitches[l];
+    p.h[l] = heights[l];
+    p.w[l] = widths[l];
+  }
+  p.n = L;
+  p.Hp = Hp;
+  p.Wp = Wp;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* idx = static_cast<const int*>(xyl);
+  auto* dst = static_cast<float*>(out);
+  if (bulk_store) {
+    patch_gather_kernel<true><<<K, kThreads, 0, s>>>(p, idx, dst);
+  } else {
+    patch_gather_kernel<false><<<K, kThreads, 0, s>>>(p, idx, dst);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,12 +4,13 @@ Port of ``pointslot_tpu/ops/frontend.py::StereoFrontend`` (the ungated
 single-pair path: ``_image_stage``, ``_frontend``, ``_stereo_from_patches``
 and its ``_stereo_pre`` / ``_stereo_sad`` / ``_stereo_fine`` phases).
 The patch gather runs four times per pair: left keypoints, right keypoints,
-right SAD windows and the level-0 fine windows.
+right SAD windows and the level-0 fine windows. On the card it reads the
+pyramid levels in place and no padded canvas is built.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -18,7 +19,7 @@ from pointslot_torch.convert import to_tensor
 from pointslot_torch.device import resolve_device
 from pointslot_torch.ops import stereo as st
 from pointslot_torch.ops.orb import FeatureSet, ORBExtractor
-from pointslot_torch.ops.patch import extract_patches_stack, stack_pyramid_for_patches
+from pointslot_torch.ops.patch import gather_patches
 
 
 class StereoFrame(NamedTuple):
@@ -71,28 +72,31 @@ class StereoFrontend:
         # selection runs on both images at once; the patch gather runs per
         # image (one launch each), as the reference's single-pair path does
         xyl, xy, resp, lvl, valid = ext.detect(scores)
-        canvas = stack_pyramid_for_patches(levels)          # (2, L, Hp, Wp)
-        patches_l, angle_l, desc_l = ext.describe(canvas[0], xyl[0])
-        _, angle_r, desc_r = ext.describe(canvas[1], xyl[1])
+        # the gathers read each image's levels in place (views of `levels`)
+        levels_l = [x[0] for x in levels]
+        levels_r = [x[1] for x in levels]
+        patches_l, angle_l, desc_l = ext.describe(levels_l, xyl[0])
+        _, angle_r, desc_r = ext.describe(levels_r, xyl[1])
         fl = FeatureSet(xy[0], resp[0], angle_l, lvl[0], desc_l, valid[0])
         fr = FeatureSet(xy[1], resp[1], angle_r, lvl[1], desc_r, valid[1])
-        u_right, depth, _ = self._stereo_from_patches(fl, fr, canvas, patches_l)
+        u_right, depth, _ = self._stereo_from_patches(fl, fr, levels_l, levels_r, patches_l)
         return (fl.xy, fl.response, fl.angle, fl.level, fl.desc, fl.valid,
                 u_right, depth)
 
     def _stereo_from_patches(self, fl: FeatureSet, fr: FeatureSet,
-                             canvas: torch.Tensor, patch_l: torch.Tensor):
+                             levels_l: List[torch.Tensor], levels_r: List[torch.Tensor],
+                             patch_l: torch.Tensor):
         """Stereo matching with the SAD windows fetched by the patch gather.
         The left windows are the extractor's own patches; the right
         candidate windows and the level-0 fine windows are gathered here."""
         pre = self._stereo_pre(fl, fr)
-        patch_r = extract_patches_stack(canvas[1], pre["xyl_r"])
+        patch_r = gather_patches(levels_r, pre["xyl_r"])
         mid = self._stereo_sad(fl, pre, patch_l, patch_r)
         if self.config.stereo_fine_min_level >= len(self.extractor.budgets):
             return mid["u_right"], mid["depth"], mid["valid_st"]
-        # one launch for both level-0 images: the left image is canvas row
-        # 0, the right image row 1
-        both = extract_patches_stack(canvas[:, 0].contiguous(), mid["xyl_fine"])
+        # one launch for both level-0 images: plane 0 is the left image,
+        # plane 1 the right
+        both = gather_patches((levels_l[0], levels_r[0]), mid["xyl_fine"])
         return self._stereo_fine(fl, mid, both)
 
     def _stereo_pre(self, fl: FeatureSet, fr: FeatureSet):

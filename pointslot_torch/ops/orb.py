@@ -32,9 +32,7 @@ from pointslot_torch.device import resolve_device
 from pointslot_torch.ops import fast as fast_ops
 from pointslot_torch.ops import pyramid as pyr_ops
 from pointslot_torch.ops.brief_pattern import LEARNED_PATTERN
-from pointslot_torch.ops.patch import (
-    PATCH, extract_patches_stack, stack_pyramid_for_patches,
-)
+from pointslot_torch.ops.patch import PATCH, gather_patches
 
 HALF_PATCH = 15          # orientation patch radius (31x31 patch)
 EDGE_MARGIN = 16         # no keypoints closer than this to a level border
@@ -197,9 +195,10 @@ class ORBExtractor:
                 torch.cat(out_resp, dim=-1), torch.cat(out_lvl, dim=-1),
                 torch.cat(out_valid, dim=-1))
 
-    def describe(self, canvas: torch.Tensor, xyl: torch.Tensor):
-        """canvas (L, Hp, Wp), xyl (K, 3) -> (patches, angle, desc)."""
-        patches = extract_patches_stack(canvas, xyl)            # (K, 48, 48)
+    def describe(self, levels: List[torch.Tensor], xyl: torch.Tensor):
+        """One image's levels (per-level (h, w) planes), xyl (K, 3) ->
+        (patches, angle, desc)."""
+        patches = gather_patches(levels, xyl)                   # (K, 48, 48)
         angle = self._orientation_from_patches(patches)
         desc = self._descriptors_from_patches(self._blur_patches(patches), angle)
         return patches, angle, desc
@@ -247,7 +246,7 @@ class ORBExtractor:
         """One image: select keypoints on every level, then ONE patch gather
         over all levels and the patch post-processing on the whole batch."""
         xyl, xy, resp, lvl, valid = self.detect(scores)
-        patches, angle, desc = self.describe(stack_pyramid_for_patches(levels), xyl)
+        patches, angle, desc = self.describe(levels, xyl)
         feats = (xy, resp, angle, lvl, desc, valid)
         if return_patches:
             return feats, patches

@@ -1,18 +1,25 @@
-"""Keypoint patch canvas and the 48x48 patch gather.
+"""Keypoint patch source and the 48x48 patch gather.
 
 Port of ``pointslot_tpu/ops/pallas_patch.py``: the canvas builders
 (``pad_for_patches``, ``stack_pyramid_for_patches``) and
 ``extract_patches_stack``, whose TPU kernel becomes the hand-written CUDA
 kernel ``csrc/patch_gather.cu``.
 
-``extract_patches_stack`` takes the plain PyTorch version only for a tensor
-on the CPU. For a CUDA tensor it launches the kernel or raises; there is no
-fallback. ``LAUNCHES`` counts the kernel's launches.
+A patch source is a sequence of L 2-D float32 planes (pyramid levels, or
+the two level-0 images). It stands for the canvas that
+``stack_pyramid_for_patches`` builds from it: every plane zero-padded onto
+the first plane's padded canvas, (h0 + 64, w0 + 256). ``gather_patches``
+reads that canvas without building it. On a CUDA tensor it launches the
+kernel, which reads the planes in place and writes the padding as zeros;
+the plain version, which builds the canvas and indexes it, runs only for
+CPU tensors. There is no fallback. ``LAUNCHES`` counts the kernel's
+launches, ``CANVAS_BUILDS`` the calls of ``stack_pyramid_for_patches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,8 +29,12 @@ from pointslot_torch import kernels
 PATCH = 48          # covers the 31x31 orientation disc and the rotated BRIEF pattern
 HALF = PATCH // 2
 _RX = 256           # right padding of the reference canvas (its DMA alignment slack)
+_RY = 64            # bottom + top padding of the reference canvas
+MAX_PLANES = 8      # the kernel's parameter struct holds this many planes
+STORES = ("bulk", "vector")   # how a kernel block writes its tile out
 
 LAUNCHES = 0        # launches of the CUDA kernel in this process
+CANVAS_BUILDS = 0   # calls of stack_pyramid_for_patches in this process
 
 _fn = None
 
@@ -31,12 +42,21 @@ _fn = None
 def pad_for_patches(img: torch.Tensor) -> torch.Tensor:
     """Pad (..., H, W) by HALF top/left, HALF + 16 bottom and HALF + 208
     right: the reference canvas geometry, (H + 64, W + 256)."""
-    return F.pad(img, (HALF, HALF + _RX - PATCH, HALF, HALF + 16))
+    return F.pad(img, (HALF, HALF + _RX - PATCH, HALF, HALF + _RY - PATCH))
+
+
+def canvas_shape(planes: Sequence[torch.Tensor]) -> Tuple[int, int]:
+    """(Hp, Wp) of the canvas a patch source stands for: the first plane's
+    padded size."""
+    h, w = planes[0].shape[-2:]
+    return h + _RY, w + _RX
 
 
 def stack_pyramid_for_patches(levels) -> torch.Tensor:
     """Pad every level onto level 0's padded canvas and stack along a new
     level axis: per-level (..., h, w) -> (..., n_levels, Hp, Wp)."""
+    global CANVAS_BUILDS
+    CANVAS_BUILDS += 1
     ref = pad_for_patches(levels[0])
     Hp, Wp = ref.shape[-2:]
     out = [ref]
@@ -52,7 +72,7 @@ def _clamp_index(i: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def extract_patches_stack_plain(canvas: torch.Tensor, xyl: torch.Tensor) -> torch.Tensor:
-    """Plain version (the reference's take path, pallas_patch.py:209-215):
+    """The reference's take path (pallas_patch.py:209-215) on a built
     canvas (L, Hp, Wp), xyl (K, 3) int32 (x, y, level) -> (K, 48, 48)."""
     L, Hp, Wp = canvas.shape
     ar = torch.arange(PATCH, dtype=torch.int32, device=canvas.device)
@@ -62,46 +82,70 @@ def extract_patches_stack_plain(canvas: torch.Tensor, xyl: torch.Tensor) -> torc
     return canvas[lvl[:, None, None], rows[:, :, None], cols[:, None, :]]
 
 
+def gather_patches_plain(planes: Sequence[torch.Tensor], xyl: torch.Tensor) -> torch.Tensor:
+    """Plain version: build the canvas, then gather from it."""
+    return extract_patches_stack_plain(stack_pyramid_for_patches(list(planes)), xyl)
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = kernels.load("patch_gather").patch_gather
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+                       ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def extract_patches_stack_cuda(canvas: torch.Tensor, xyl: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream."""
+def gather_patches_cuda(planes: Sequence[torch.Tensor], xyl: torch.Tensor,
+                        store: str = "bulk") -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream. `store` picks how a
+    block writes its tile: one bulk asynchronous copy, or 16-byte stores."""
     global LAUNCHES
-    if canvas.device.type != "cuda" or xyl.device != canvas.device:
-        raise ValueError("canvas and xyl must be on the same CUDA device")
-    if canvas.dtype != torch.float32 or xyl.dtype != torch.int32:
-        raise TypeError(f"need float32 canvas and int32 xyl, got {canvas.dtype}, {xyl.dtype}")
-    if canvas.dim() != 3 or xyl.dim() != 2 or xyl.shape[1] != 3:
-        raise ValueError(f"need canvas (L, Hp, Wp) and xyl (K, 3), got "
-                         f"{tuple(canvas.shape)}, {tuple(xyl.shape)}")
-    if not (canvas.is_contiguous() and xyl.is_contiguous()):
-        raise ValueError("canvas and xyl must be contiguous")
+    planes = list(planes)
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"need 1 to {MAX_PLANES} planes, got {len(planes)}")
+    if store not in STORES:
+        raise ValueError(f"store must be one of {STORES}, got {store!r}")
+    dev = xyl.device
+    if dev.type != "cuda" or any(p.device != dev for p in planes):
+        raise ValueError("planes and xyl must be on the same CUDA device")
+    if xyl.dtype != torch.int32 or any(p.dtype != torch.float32 for p in planes):
+        raise TypeError(f"need float32 planes and int32 xyl, got "
+                        f"{[p.dtype for p in planes]}, {xyl.dtype}")
+    if xyl.dim() != 2 or xyl.shape[1] != 3 or not xyl.is_contiguous():
+        raise ValueError(f"need contiguous xyl (K, 3), got {tuple(xyl.shape)}")
+    if any(p.dim() != 2 or p.stride(1) != 1 for p in planes):
+        raise ValueError("each plane must be 2-D with unit column stride")
     K = xyl.shape[0]
-    out = torch.empty((K, PATCH, PATCH), dtype=torch.float32, device=canvas.device)
+    out = torch.empty((K, PATCH, PATCH), dtype=torch.float32, device=dev)
     if K == 0:
         return out
-    L, Hp, Wp = canvas.shape
-    stream = torch.cuda.current_stream(canvas.device).cuda_stream
-    err = _kernel()(canvas.data_ptr(), xyl.data_ptr(), out.data_ptr(),
-                    K, L, Hp, Wp, stream)
+    L = len(planes)
+    Hp, Wp = canvas_shape(planes)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _kernel()(
+        (ctypes.c_void_p * L)(*[p.data_ptr() for p in planes]),
+        (ctypes.c_longlong * L)(*[p.stride(0) for p in planes]),
+        (ctypes.c_int * L)(*[p.shape[0] for p in planes]),
+        (ctypes.c_int * L)(*[p.shape[1] for p in planes]),
+        L, Hp, Wp, xyl.data_ptr(), out.data_ptr(), K, int(store == "bulk"), stream)
     if err != 0:
         raise RuntimeError(f"patch_gather launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
 
 
-def extract_patches_stack(canvas: torch.Tensor, xyl: torch.Tensor) -> torch.Tensor:
-    """canvas (L, Hp, Wp) from stack_pyramid_for_patches, xyl (K, 3) int32
-    (x, y, level) centers -> (K, 48, 48) float32 patches, keypoint at
-    (24, 24). The CPU runs the plain version; CUDA runs the kernel."""
-    if canvas.device.type == "cpu":
-        return extract_patches_stack_plain(canvas, xyl)
-    return extract_patches_stack_cuda(canvas, xyl)
+def gather_patches(planes: Sequence[torch.Tensor], xyl: torch.Tensor) -> torch.Tensor:
+    """Patch source `planes` (L 2-D float32 planes, the first setting the
+    canvas size), xyl (K, 3) int32 (x, y, plane) centers in plane pixels ->
+    (K, 48, 48) float32 patches, the center at (24, 24): equal to gathering
+    from stack_pyramid_for_patches(planes). The CPU runs the plain version;
+    CUDA runs the kernel."""
+    if xyl.device.type == "cpu":
+        return gather_patches_plain(planes, xyl)
+    return gather_patches_cuda(planes, xyl)

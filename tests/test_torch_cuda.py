@@ -20,46 +20,76 @@ def _need_card():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
 
 
-@pytest.mark.parametrize("L, K", [(8, 1000), (2, 266)])
-def test_patch_gather_kernel_equals_plain(L, K):
-    """A pure copy: the kernel equals the plain gather exactly, at the
-    path's canvas (L, 439, 1498), clamped edge centres included."""
+def _levels(seed: int):
+    """The port's pyramid of a random 1242x375 pair on the card: per-level
+    (2, h, w) tensors, as the frontend holds them."""
+    from pointslot_torch.ops.orb import ORBExtractor
+
+    g = torch.Generator().manual_seed(seed)
+    both = (torch.rand((2, 375, 1242), generator=g) * 255).cuda()
+    return ORBExtractor(375, 1242, device="cuda").pyramid(both)
+
+
+@pytest.mark.parametrize("site, K", [("left-orb", 1000), ("right-orb", 1000),
+                                     ("right-sad", 1000), ("fine", 266)])
+def test_patch_gather_kernel_equals_plain(site, K):
+    """A pure copy: the kernel (both tile stores) equals the plain gather
+    exactly for the frontend's four patch sources at the path's shapes --
+    image 0's 8 levels, image 1's 8 levels (ORB and SAD windows) and the two
+    level-0 images -- the planes read in place, edge centres included."""
     _need_card()
+    levels = _levels(K + len(site))
+    if site == "fine":
+        planes = [levels[0][0], levels[0][1]]
+    else:
+        planes = [x[0 if site == "left-orb" else 1] for x in levels]
+    L = len(planes)
+    Hp, Wp = patch.canvas_shape(planes)
     g = torch.Generator().manual_seed(K)
-    canvas = torch.rand((L, 439, 1498), generator=g).cuda() * 255
-    Hp, Wp = canvas.shape[1:]
-    xyl = torch.stack([torch.randint(0, 1242, (K,), generator=g),
-                       torch.randint(0, 375, (K,), generator=g),
-                       torch.randint(0, L, (K,), generator=g)], 1)
+    lvl = torch.randint(0, L, (K,), generator=g)
+    hw = torch.tensor([tuple(p.shape) for p in planes])[lvl]
+    xyl = torch.stack([(torch.rand(K, generator=g) * hw[:, 1]).long(),
+                       (torch.rand(K, generator=g) * hw[:, 0]).long(), lvl], 1)
     edges = torch.tensor([[0, 0, 0], [Wp - 1, Hp - 1, L - 1], [Wp + 5, Hp + 9, L],
-                          [-1, -1, 0], [-Wp - 3, -2, 1], [3, 4, -1]])
+                          [-1, -1, 0], [-Wp - 3, -2, 1], [3, 4, -1], [17, -60, L + 1]])
     xyl = torch.cat([xyl, edges]).to(torch.int32).cuda()
-    before = patch.LAUNCHES
-    got = patch.extract_patches_stack(canvas, xyl)
-    assert patch.LAUNCHES == before + 1
-    want = patch.extract_patches_stack_plain(canvas, xyl)
-    torch.cuda.synchronize()
-    assert got.shape == (K + 6, 48, 48)
-    assert torch.equal(got, want)
+    builds = patch.CANVAS_BUILDS
+    for store in patch.STORES:
+        before = patch.LAUNCHES
+        got = patch.gather_patches_cuda(planes, xyl, store=store)
+        assert patch.LAUNCHES == before + 1
+        assert patch.CANVAS_BUILDS == builds
+        want = patch.gather_patches_plain(planes, xyl)
+        torch.cuda.synchronize()
+        assert got.shape == (K + 7, 48, 48)
+        assert torch.equal(got, want), store
+        builds = patch.CANVAS_BUILDS
+    assert torch.equal(patch.gather_patches(planes, xyl), want)
 
 
 def test_patch_gather_rejects_bad_input():
     _need_card()
-    canvas = torch.zeros((2, 64, 64), device="cuda")
+    planes = [torch.zeros((64, 64), device="cuda"), torch.zeros((32, 32), device="cuda")]
     xyl = torch.zeros((4, 3), dtype=torch.int32, device="cuda")
     with pytest.raises(TypeError):
-        patch.extract_patches_stack(canvas.double(), xyl)
+        patch.gather_patches(planes[:1] + [planes[1].double()], xyl)
     with pytest.raises(TypeError):
-        patch.extract_patches_stack(canvas, xyl.long())
+        patch.gather_patches(planes, xyl.long())
     with pytest.raises(ValueError):
-        patch.extract_patches_stack(canvas, xyl[:, :2].contiguous())
+        patch.gather_patches(planes, xyl[:, :2].contiguous())
     with pytest.raises(ValueError):
-        patch.extract_patches_stack(canvas.transpose(1, 2), xyl)
+        patch.gather_patches([planes[0], planes[1].cpu()], xyl)
+    with pytest.raises(ValueError):
+        patch.gather_patches([planes[0].t(), planes[1]], xyl)
+    with pytest.raises(ValueError):
+        patch.gather_patches(planes * 5, xyl)
+    with pytest.raises(ValueError):
+        patch.gather_patches_cuda(planes, xyl, store="scalar")
 
 
 def test_fused_frame_step_cuda_matches_cpu():
     """The whole step on the card against the port's CPU path at 512x256:
-    four kernel launches per frame; translations within 1e-3 m and
+    four kernel launches per frame and no canvas built; translations within 1e-3 m and
     keypoints equal but for float32-rounding ties (bounded at 0.5 %)."""
     _need_card()
     cam = CameraConfig(width=512, height=256, fx=300.0, fy=300.0, cx=256.0, cy=128.0, bf=60.0)
@@ -80,11 +110,12 @@ def test_fused_frame_step_cuda_matches_cpu():
     out = {}
     for dev in ("cuda", "cpu"):
         step = FusedFrameStep(cfg, device=dev)
-        before = patch.LAUNCHES
+        before, builds = patch.LAUNCHES, patch.CANVAS_BUILDS
         r, To, _, n = step(*args)
         if dev == "cuda":
             torch.cuda.synchronize()
             assert patch.LAUNCHES == before + 4
+            assert patch.CANVAS_BUILDS == builds
             assert r.T_cw.device.type == "cuda"
         out[dev] = (convert.to_numpy(r), To.cpu().numpy())
     (g, gTo), (c, cTo) = out["cuda"], out["cpu"]

@@ -169,7 +169,6 @@ def test_stereo_frontend_matches_reference(steps):
 
     from pointslot_tpu.ops.orb import FeatureSet as JFeatureSet
     from pointslot_torch.ops.orb import FeatureSet
-    from pointslot_torch.ops.patch import stack_pyramid_for_patches
 
     jstep, step = steps
     fe, jfe = step.frontend, jstep.frontend
@@ -181,20 +180,21 @@ def test_stereo_frontend_matches_reference(steps):
     levels, scores = fe._image_stage(both)
     ext = fe.extractor
     xyl, xy, resp, lvl, valid = ext.detect(scores)
-    canvas = stack_pyramid_for_patches(levels)
-    patch_l, ang_l, desc_l = ext.describe(canvas[0], xyl[0])
-    _, ang_r, desc_r = ext.describe(canvas[1], xyl[1])
+    levels_l = [x[0] for x in levels]
+    levels_r = [x[1] for x in levels]
+    patch_l, ang_l, desc_l = ext.describe(levels_l, xyl[0])
+    _, ang_r, desc_r = ext.describe(levels_r, xyl[1])
     fl = FeatureSet(xy[0], resp[0], ang_l, lvl[0], desc_l, valid[0])
     fr = FeatureSet(xy[1], resp[1], ang_r, lvl[1], desc_r, valid[1])
-    u_right, depth, valid_st = fe._stereo_from_patches(fl, fr, canvas, patch_l)
+    u_right, depth, valid_st = fe._stereo_from_patches(fl, fr, levels_l, levels_r, patch_l)
 
     def jax_set(f):
         f = convert.to_numpy(f)
         return JFeatureSet(*[jnp.asarray(x) for x in f])
 
     run = jax.jit(jfe._stereo_from_patches)
-    want = run(jax_set(fl), jax_set(fr), [jnp.asarray(x[0].numpy()) for x in levels],
-               [jnp.asarray(x[1].numpy()) for x in levels], jnp.asarray(patch_l.numpy()))
+    want = run(jax_set(fl), jax_set(fr), [jnp.asarray(x.numpy()) for x in levels_l],
+               [jnp.asarray(x.numpy()) for x in levels_r], jnp.asarray(patch_l.numpy()))
     w_ur, w_depth, w_valid = (np.asarray(x) for x in want)
     assert w_valid.sum() > 200
     np.testing.assert_array_equal(valid_st.numpy(), w_valid)

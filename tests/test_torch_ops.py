@@ -166,6 +166,6 @@ def test_cuda_request_raises_without_card():
     with pytest.raises(RuntimeError, match="cuda"):
         ORBExtractor(64, 96)
     with pytest.raises(ValueError):
-        patch.extract_patches_stack_cuda(torch.zeros(1, 64, 64),
-                                         torch.zeros(1, 3, dtype=torch.int32))
+        patch.gather_patches_cuda([torch.zeros(64, 64)],
+                                  torch.zeros(1, 3, dtype=torch.int32))
     assert patch.LAUNCHES == 0

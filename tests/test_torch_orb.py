@@ -122,7 +122,44 @@ def test_patch_canvas_and_gather_equal_exactly(extractors, rng):
     xyl = np.concatenate([xyl, edges]).astype(np.int32)
     want = np.asarray(jpatch.extract_patches_stack(jnp.asarray(want_canvas),
                                                    jnp.asarray(xyl), use_pallas=False))
-    got = patch.extract_patches_stack(canvas, T(xyl))
+    got = patch.extract_patches_stack_plain(canvas, T(xyl))
+    np.testing.assert_array_equal(got.numpy(), want)
+    got = patch.gather_patches([T(np.asarray(x)) for x in levels], T(xyl))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert patch.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("source", ["left-levels", "level0-pair"])
+def test_level_source_gather_equals_reference(extractors, source):
+    """The gather from a patch source (planes where they lie, here on the
+    CPU through the plain version) equals the reference's take path on the
+    canvas JAX builds, exactly: a frame's real keypoints, edge centres and
+    negative wraps, for the left image's 8 levels (the ORB gathers) and for
+    the two level-0 images (the fine windows; the third column picks the
+    image)."""
+    _, ext = extractors
+    scene = make_scene(n_frames=2, n_points=2500, n_objects=2, seed=7)
+    left, right, _ = SyntheticRenderer(scene).render(1)
+    lv_l = jpyr.build_pyramid(jnp.asarray(left, jnp.float32), 8, 1.2)
+    xyl, xy = ext.detect(ext.scores([T(np.asarray(x)) for x in lv_l]))[:2]
+    if source == "left-levels":
+        planes = lv_l
+        xyl = xyl.numpy()
+    else:
+        planes = [lv_l[0], jpyr.build_pyramid(jnp.asarray(right, jnp.float32), 8, 1.2)[0]]
+        xy0 = np.round(xy.numpy()).astype(np.int32)
+        xyl = np.stack([xy0[:, 0], xy0[:, 1], np.arange(len(xy0)) % 2], axis=1)
+    assert len(xyl) == 1000
+    L = len(planes)
+    Hp, Wp = 375 + 64, 1242 + 256
+    edges = np.array([[0, 0, 0], [1241, 374, L - 1], [Wp - 1, Hp - 1, L - 1],
+                      [Wp + 5, Hp + 9, L], [-1, -1, 0], [-Wp - 3, -2, 1], [17, -60, L + 1],
+                      [3, 4, -1], [-30, 380, 0], [1230, -Hp - 7, 1]])
+    xyl = np.concatenate([xyl, edges]).astype(np.int32)
+    want = np.asarray(jpatch.extract_patches_stack(jpatch.stack_pyramid_for_patches(planes),
+                                                   jnp.asarray(xyl), use_pallas=False))
+    got = patch.gather_patches([T(np.asarray(x)) for x in planes], T(xyl))
+    assert got.shape == (1010, 48, 48)
     np.testing.assert_array_equal(got.numpy(), want)
     assert patch.LAUNCHES == 0
 
