@@ -133,9 +133,9 @@ def record_sites(fe, left: torch.Tensor, right: torch.Tensor):
     calls = []
     launch = patch.gather_patches_cuda
 
-    def record(planes, xyl, **kw):
+    def record(planes, xyl):
         calls.append((tuple(planes), xyl))
-        return launch(planes, xyl, **kw)
+        return launch(planes, xyl)
 
     patch.gather_patches_cuda = record
     try:
@@ -151,10 +151,10 @@ def record_sites(fe, left: torch.Tensor, right: torch.Tensor):
 def check_patch_gather(seq) -> dict:
     """The kernel on the card at the four call sites of frame 1's step
     (left ORB, right ORB, right SAD, level-0 fine windows) and on edge
-    centres: exact against its plain version with either tile store, then
-    timed warm and L2-cold beside its bound and the plain version. Also
-    times the canvas the earlier design built every frame, and the kernel
-    over K. Returns the kernels-line numbers."""
+    centres: exact against its plain version, then timed warm and L2-cold
+    beside its bound and the plain version; the kernel over K; and the
+    canvas the earlier design built every frame. Returns the kernels-line
+    numbers."""
     fe = seq.full.frontend
     left, right = seq.inputs(1)
     sites = record_sites(fe, left, right)
@@ -168,17 +168,14 @@ def check_patch_gather(seq) -> dict:
     cases = dict(sites, **{"edge centres": (planes_l, edges)})
     max_err = 0.0
     for name, (planes, xyl) in cases.items():
+        got = patch.gather_patches_cuda(planes, xyl)
         want = patch.gather_patches_plain(planes, xyl)
-        for store in patch.STORES:
-            got = patch.gather_patches_cuda(planes, xyl, store=store)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            print(f"patch_gather {name} ({store} store): shape {tuple(got.shape)} "
-                  f"max_abs_diff {err}")
-            if err != 0.0:
-                raise SystemExit(f"patch_gather disagrees with its plain version "
-                                 f"({name}, {store} store): {err}")
-            max_err = max(max_err, err)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        print(f"patch_gather {name}: shape {tuple(got.shape)} max_abs_diff {err}")
+        if err != 0.0:
+            raise SystemExit(f"patch_gather disagrees with its plain version ({name}): {err}")
+        max_err = max(max_err, err)
 
     scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=xyl_l.device)
     flush = lambda: scratch.fill_(1.0)   # noqa: E731
@@ -187,30 +184,25 @@ def check_patch_gather(seq) -> dict:
           f"(subtracted from the cold times)")
     out = []
     for name, (planes, xyl) in sites.items():
-        row = dict(site=name, K=int(xyl.shape[0]))
-        for store in patch.STORES:
-            fn = lambda: patch.gather_patches_cuda(planes, xyl, store=store)  # noqa: E731
-            row[f"{store}_cold_ms"] = _cold_ms(fn, flush)
-            row[f"{store}_warm_ms"] = _graph_ms(fn)
-        row["plain_ms"] = _graph_ms(lambda: patch.gather_patches_plain(planes, xyl), reps=10)
-        row["bound_ms"] = _patch_bound_ms(planes, xyl)
-        row["canvas_count_bound_ms"] = _patch_bound_ms(planes, xyl, in_plane=False)
+        fn = lambda: patch.gather_patches_cuda(planes, xyl)  # noqa: E731
+        row = dict(site=name, K=int(xyl.shape[0]), cold_ms=_cold_ms(fn, flush),
+                   warm_ms=_graph_ms(fn),
+                   plain_ms=_graph_ms(lambda: patch.gather_patches_plain(planes, xyl), reps=10),
+                   bound_ms=_patch_bound_ms(planes, xyl),
+                   canvas_count_bound_ms=_patch_bound_ms(planes, xyl, in_plane=False))
         out.append(row)
-        print(f"patch_gather {name}, K = {row['K']}: cold {row['bulk_cold_ms']:.6f} ms "
-              f"(16-byte store {row['vector_cold_ms']:.6f}), bound {row['bound_ms']:.6f} ms "
-              f"(bytes; canvas count {row['canvas_count_bound_ms']:.6f}), cold/bound "
-              f"{row['bulk_cold_ms'] / row['bound_ms']:.2f}; warm {row['bulk_warm_ms']:.6f} "
-              f"(16-byte store {row['vector_warm_ms']:.6f}; L2-resident, not held to the "
-              f"bound); plain {row['plain_ms']:.6f} ms")
+        print(f"patch_gather {name}, K = {row['K']}: cold {row['cold_ms']:.6f} ms, bound "
+              f"{row['bound_ms']:.6f} ms (bytes; canvas count "
+              f"{row['canvas_count_bound_ms']:.6f}), cold/bound "
+              f"{row['cold_ms'] / row['bound_ms']:.2f}; warm {row['warm_ms']:.6f} ms "
+              f"(L2-resident, not held to the bound); plain {row['plain_ms']:.6f} ms")
 
     for K in (64, 266, 1000, 4000):
         xyl = xyl_l.repeat(-(-K // xyl_l.shape[0]), 1)[:K].contiguous()
-        cold = {store: _cold_ms(lambda: patch.gather_patches_cuda(planes_l, xyl, store=store),
-                                flush) for store in patch.STORES}
+        cold = _cold_ms(lambda: patch.gather_patches_cuda(planes_l, xyl), flush)
         b_ms = _patch_bound_ms(planes_l, xyl)
-        print(f"patch_gather over K, left ORB planes: K = {K}: cold {cold['bulk']:.6f} ms "
-              f"(16-byte store {cold['vector']:.6f}), bound {b_ms:.6f} ms, "
-              f"cold/bound {cold['bulk'] / b_ms:.2f}")
+        print(f"patch_gather over K, left ORB planes: K = {K}: cold {cold:.6f} ms, "
+              f"bound {b_ms:.6f} ms, cold/bound {cold / b_ms:.2f}")
 
     levels = fe._image_stage(torch.stack([left.to(torch.float32), right.to(torch.float32)]))[0]
 
@@ -475,8 +467,8 @@ def main() -> int:
         "replaces_kernel": "pointslot_tpu/ops/pallas_patch.py::_patch_kernel_stack",
         "launches": launches, "launches_per_frame": launches // n_frames,
         "max_abs_err": kernel["max_abs_err"], "max_abs_diff": kernel["max_abs_err"],
-        "ms": left["bulk_cold_ms"], "kernel_ms": left["bulk_cold_ms"],
-        "warm_ms": left["bulk_warm_ms"], "plain_ms": left["plain_ms"],
+        "ms": left["cold_ms"], "kernel_ms": left["cold_ms"],
+        "warm_ms": left["warm_ms"], "plain_ms": left["plain_ms"],
         "bound_ms": left["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "canvas_builds": builds, "sites": kernel["sites"],
         "earlier_canvas": {"ms": kernel["canvas_ms"], "cold_ms": kernel["canvas_cold_ms"],

@@ -31,7 +31,6 @@ HALF = PATCH // 2
 _RX = 256           # right padding of the reference canvas (its DMA alignment slack)
 _RY = 64            # bottom + top padding of the reference canvas
 MAX_PLANES = 8      # the kernel's parameter struct holds this many planes
-STORES = ("bulk", "vector")   # how a kernel block writes its tile out
 
 LAUNCHES = 0        # launches of the CUDA kernel in this process
 CANVAS_BUILDS = 0   # calls of stack_pyramid_for_patches in this process
@@ -94,23 +93,18 @@ def _kernel():
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
                        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def gather_patches_cuda(planes: Sequence[torch.Tensor], xyl: torch.Tensor,
-                        store: str = "bulk") -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. `store` picks how a
-    block writes its tile: one bulk asynchronous copy, or 16-byte stores."""
+def gather_patches_cuda(planes: Sequence[torch.Tensor], xyl: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream."""
     global LAUNCHES
     planes = list(planes)
     if not 1 <= len(planes) <= MAX_PLANES:
         raise ValueError(f"need 1 to {MAX_PLANES} planes, got {len(planes)}")
-    if store not in STORES:
-        raise ValueError(f"store must be one of {STORES}, got {store!r}")
     dev = xyl.device
     if dev.type != "cuda" or any(p.device != dev for p in planes):
         raise ValueError("planes and xyl must be on the same CUDA device")
@@ -133,7 +127,7 @@ def gather_patches_cuda(planes: Sequence[torch.Tensor], xyl: torch.Tensor,
         (ctypes.c_longlong * L)(*[p.stride(0) for p in planes]),
         (ctypes.c_int * L)(*[p.shape[0] for p in planes]),
         (ctypes.c_int * L)(*[p.shape[1] for p in planes]),
-        L, Hp, Wp, xyl.data_ptr(), out.data_ptr(), K, int(store == "bulk"), stream)
+        L, Hp, Wp, xyl.data_ptr(), out.data_ptr(), K, stream)
     if err != 0:
         raise RuntimeError(f"patch_gather launch failed: cudaError {err}")
     LAUNCHES += 1

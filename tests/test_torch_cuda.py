@@ -33,10 +33,10 @@ def _levels(seed: int):
 @pytest.mark.parametrize("site, K", [("left-orb", 1000), ("right-orb", 1000),
                                      ("right-sad", 1000), ("fine", 266)])
 def test_patch_gather_kernel_equals_plain(site, K):
-    """A pure copy: the kernel (both tile stores) equals the plain gather
-    exactly for the frontend's four patch sources at the path's shapes --
-    image 0's 8 levels, image 1's 8 levels (ORB and SAD windows) and the two
-    level-0 images -- the planes read in place, edge centres included."""
+    """A pure copy: the kernel equals the plain gather exactly for the
+    frontend's four patch sources at the path's shapes -- image 0's 8
+    levels, image 1's 8 levels (ORB and SAD windows) and the two level-0
+    images -- the planes read in place, edge centres included."""
     _need_card()
     levels = _levels(K + len(site))
     if site == "fine":
@@ -53,18 +53,14 @@ def test_patch_gather_kernel_equals_plain(site, K):
     edges = torch.tensor([[0, 0, 0], [Wp - 1, Hp - 1, L - 1], [Wp + 5, Hp + 9, L],
                           [-1, -1, 0], [-Wp - 3, -2, 1], [3, 4, -1], [17, -60, L + 1]])
     xyl = torch.cat([xyl, edges]).to(torch.int32).cuda()
-    builds = patch.CANVAS_BUILDS
-    for store in patch.STORES:
-        before = patch.LAUNCHES
-        got = patch.gather_patches_cuda(planes, xyl, store=store)
-        assert patch.LAUNCHES == before + 1
-        assert patch.CANVAS_BUILDS == builds
-        want = patch.gather_patches_plain(planes, xyl)
-        torch.cuda.synchronize()
-        assert got.shape == (K + 7, 48, 48)
-        assert torch.equal(got, want), store
-        builds = patch.CANVAS_BUILDS
-    assert torch.equal(patch.gather_patches(planes, xyl), want)
+    before, builds = patch.LAUNCHES, patch.CANVAS_BUILDS
+    got = patch.gather_patches(planes, xyl)
+    assert patch.LAUNCHES == before + 1
+    assert patch.CANVAS_BUILDS == builds
+    want = patch.gather_patches_plain(planes, xyl)
+    torch.cuda.synchronize()
+    assert got.shape == (K + 7, 48, 48)
+    assert torch.equal(got, want)
 
 
 def test_patch_gather_rejects_bad_input():
@@ -83,14 +79,13 @@ def test_patch_gather_rejects_bad_input():
         patch.gather_patches([planes[0].t(), planes[1]], xyl)
     with pytest.raises(ValueError):
         patch.gather_patches(planes * 5, xyl)
-    with pytest.raises(ValueError):
-        patch.gather_patches_cuda(planes, xyl, store="scalar")
 
 
 def test_fused_frame_step_cuda_matches_cpu():
     """The whole step on the card against the port's CPU path at 512x256:
-    four kernel launches per frame and no canvas built; translations within 1e-3 m and
-    keypoints equal but for float32-rounding ties (bounded at 0.5 %)."""
+    four kernel launches per frame and no canvas built; translations within
+    1e-3 m and keypoints equal but for float32-rounding ties (bounded at
+    0.5 %)."""
     _need_card()
     cam = CameraConfig(width=512, height=256, fx=300.0, fy=300.0, cx=256.0, cy=128.0, bf=60.0)
     cfg = SystemConfig().replace(camera=cam)
