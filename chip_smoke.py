@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive pointslot_torch's mode-4 per-frame hot path on one CUDA card.
+"""Drive pointslot_torch's per-frame hot path and its mode-0 System on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,18 +8,25 @@ Run from the repository root on a machine with one NVIDIA H100 (or another
 sm_90a card). Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit from nvidia-smi;
-2. build: nvcc builds every kernel of the path from pointslot_torch/csrc;
+2. build: nvcc builds every kernel of the paths from pointslot_torch/csrc;
 3. kernels against their plain versions (exact) at the four patch-gather
    call sites of frame 1's step and on edge centres, with device times from
    CUDA graphs of repeated launches, warm and L2-cold, beside the bound;
-4. main path: a KITTI-size (1242x375) synthetic mode-4 sequence through
+4. fused step: a KITTI-size (1242x375) synthetic mode-4 sequence through
    FusedFrameStep on the card -- a 2048-point local map and two 256-point
    object tables of the true structure, refreshed at keyframes -- checked
    against ground truth, with the kernels' launch counts and the canvas
    builds (none) read around it; then the camera and object halves timed
    apart, a profile, and frame 1 repeated on the port's CPU path (gated);
-5. one JSON line with every kernel's numbers;
-6. last line: {"ok": true, "device": {...}}.
+5. System: the mode-0 System at full KITTI width (default camera, ORB,
+   map and BA caps, loop closing off) on 40 frames of the scene of
+   tests/test_slam_e2e.py, three ways -- (a) host tracker with sync
+   mapping, (b) the device-resident fast path, (c) async mapping on the
+   first 20 frames -- each gated on state, ATE, keyframes, BA calls and
+   4 patch-gather launches per frame; timings, a profile of 4 frames of
+   (a) and (b), and (a)'s first 6 frames against the port's CPU path;
+6. one JSON line with every kernel's numbers;
+7. last line: {"ok": true, "device": {...}}.
 
 Needs no network; builds into build/kernels/.
 """
@@ -32,10 +40,14 @@ import numpy as np
 import torch
 
 from pointslot_torch import convert, kernels
-from pointslot_torch.config import CameraConfig, SystemConfig
+from pointslot_torch.config import CameraConfig, LoopConfig, RuntimeConfig, SystemConfig
 from pointslot_torch.datasets import synthetic
 from pointslot_torch.ops import patch
 from pointslot_torch.ops.fused_track import FusedFrameStep
+from pointslot_torch.slam.system import System
+from pointslot_torch.slam.tracking import TrackingState
+from pointslot_torch.solvers import local_ba
+from pointslot_torch.utils.profiling import PROFILER
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 MAP_POINTS, OBJECTS, OBJ_POINTS = 2048, 2, 256
@@ -48,6 +60,11 @@ MAX_POSE_GAP_M = 1e-3            # card vs CPU path, tests/test_torch_cuda.py
 SITES = ("left ORB", "right ORB", "right SAD", "fine")   # patch gathers, call order
 FLUSH_BYTES = 128 << 20          # L2 flush write, over twice the 50 MB L2
 CANVAS_OPS = ("aten::constant_pad_nd", "aten::stack", "aten::contiguous")
+SYSTEM_FRAMES, ASYNC_FRAMES, CPU_FRAMES = 40, 20, 6
+SYSTEM_SPEED = 0.8               # m/frame, tests/test_slam_e2e.py:17
+MAX_ATE_SHARE = 0.02             # of the path length, tests/test_slam_e2e.py:45
+PROFILE_AT = 20                  # first of the 4 profiled System frames
+MAX_SYSTEM_GAP_M = 5e-3          # card vs CPU System, tests/test_torch_system.py
 
 
 def _capture(fn, reps: int) -> torch.cuda.CUDAGraph:
@@ -334,11 +351,32 @@ def time_halves(seq: Sequence, frames):
     return cam_ms, obj_ms
 
 
+def _device_summary(prof, n: int, wall_ms: float, label: str, top: int = 12) -> dict:
+    """Device busy time, idle share and kernel launches per frame from a
+    torch.profiler run over `n` frames that took `wall_ms` in all; prints
+    them and the kernels taking most device time."""
+    from torch.autograd import DeviceType
+
+    kernels_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels_ev) / 1e3
+    by_name = {}
+    for e in kernels_ev:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
+    out = dict(wall_ms=wall_ms / n, busy_ms=busy_ms / n, idle_share=1 - busy_ms / wall_ms,
+               launches=len(kernels_ev) / n)
+    print(f"{label} over {n} frames: wall {out['wall_ms']:.3f} ms/frame, device busy "
+          f"{out['busy_ms']:.3f} ms/frame, idle share {out['idle_share']:.3f}, "
+          f"{out['launches']:.0f} kernel launches/frame")
+    for name, (cnt, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"  {t / n:8.3f} ms/frame {cnt / n:6.0f} launches/frame  {name[:90]}")
+    return out
+
+
 def profile_frames(seq: Sequence, frames):
     """torch.profiler over a few whole steps: the device's busy and idle
     share, kernel launches per frame and the kernels taking most device
     time. The profiler adds host cost, so the idle share is an upper bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     full = seq.full
@@ -352,18 +390,8 @@ def profile_frames(seq: Sequence, frames):
             T, vel = r.T_cw, r.velocity
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels_ev) / 1e3
-    by_name = {}
-    for e in kernels_ev:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
     n = len(frames)
-    print(f"profile over {n} frames: wall {wall_ms / n:.3f} ms/frame, device busy "
-          f"{busy_ms / n:.3f} ms/frame, idle share {1 - busy_ms / wall_ms:.3f}, "
-          f"{len(kernels_ev) / n:.0f} kernel launches/frame")
-    for name, (cnt, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        print(f"  {t / n:8.3f} ms/frame {cnt / n:6.0f} launches/frame  {name[:90]}")
+    _device_summary(prof, n, wall_ms, "profile")
     # the ops that built the patch canvas in the earlier design; what is
     # left of them is their other uses in the step
     avg = {e.key: e for e in prof.key_averages()}
@@ -417,6 +445,204 @@ def compare_with_cpu(cfg: SystemConfig, full: FusedFrameStep):
                          f"(camera) and {obj_gap:.3e} m (objects)")
 
 
+# ---------------------------------------------------------------------------
+# the mode-0 System
+# ---------------------------------------------------------------------------
+
+def system_config(**runtime) -> SystemConfig:
+    """Full KITTI width: the default camera (1242x375), ORB (1000 features,
+    8 levels), map caps (256 keyframes, 32768 points) and BA caps (32 / 8192
+    / 16); loop closing off (not ported); the stage timers on."""
+    return SystemConfig(loop=LoopConfig(enabled=False),
+                        runtime=RuntimeConfig(profile=True, **runtime))
+
+
+def render_system_frames(n: int):
+    """The scene of tests/test_slam_e2e.py at full width: (scene, frames)."""
+    scene = synthetic.make_scene(n_frames=n, n_points=2500, n_objects=0, seed=21,
+                                 forward_speed=SYSTEM_SPEED)
+    renderer = synthetic.SyntheticRenderer(scene)
+    t0 = time.perf_counter()
+    frames = [renderer.render(i)[:2] for i in range(n)]
+    print(f"rendered {n} stereo pairs for the System in {time.perf_counter() - t0:.1f} s (host)")
+    return scene, frames
+
+
+def _ate(scene, traj, frames=None) -> float:
+    errs = [np.linalg.norm(np.linalg.inv(T)[:3, 3] - scene.poses_world[f][:3, 3])
+            for f, T, _ in traj if frames is None or f in frames]
+    return float(np.sqrt(np.mean(np.square(errs))))
+
+
+def _keyframe_ids(m):
+    return sorted(int(m.kf_frame_id[k]) for k in m.keyframe_ids())
+
+
+class _TimedBA:
+    """Wraps local_ba.bundle_adjust to time each call between CUDA events
+    on the device (the mapper copies the result to the host right after)."""
+
+    def __init__(self):
+        self.inner, self.ms, self.last = local_ba.bundle_adjust, [], None
+
+    def __call__(self, prob, **kw):
+        self.last = (prob, kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.inner(prob, **kw)
+        end.record()
+        end.synchronize()
+        self.ms.append(start.elapsed_time(end))
+        return out
+
+
+def run_system(name: str, scene, frames, device="cuda", profile_at=None,
+               snapshot_at=None, mapping_gates=True, **runtime) -> dict:
+    """Drive System.track_stereo over `frames` on `device` with the patch
+    gather's count set to 0 just before and read just after. Returns the
+    run's numbers; raises SystemExit when a gate fails (`mapping_gates`
+    False drops the keyframe and BA-call gates, for a run too short to
+    reach them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    system = System(system_config(**runtime), device=device)
+    PROFILER.reset()
+    timed_ba = _TimedBA() if device == "cuda" else None
+    if timed_ba is not None:
+        local_ba.bundle_adjust = timed_ba
+    prof_frames = set(range(profile_at, profile_at + 4)) if profile_at is not None else set()
+    out = dict(name=name, frames=len(frames))
+    patch.LAUNCHES = 0
+    try:
+        i = 0
+        while i < len(frames):
+            if i in prof_frames:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for k in sorted(prof_frames):
+                        system.track_stereo(*frames[k], timestamp=k * 0.1, frame_id=k)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                out["profile"] = _device_summary(prof, len(prof_frames), wall_ms,
+                                                 f"System ({name}) profile", top=8)
+                i += len(prof_frames)
+                continue
+            system.track_stereo(*frames[i], timestamp=i * 0.1, frame_id=i)
+            if snapshot_at is not None and i == snapshot_at - 1:
+                out["snapshot"] = (system.camera_trajectory(), _keyframe_ids(system.map),
+                                   system.map.n_points())
+            i += 1
+        system.wait_for_mapping()
+        launches = patch.LAUNCHES
+    finally:
+        if timed_ba is not None:
+            local_ba.bundle_adjust = timed_ba.inner
+    traj = system.camera_trajectory()
+    summary = PROFILER.summary()["stages"]
+    stats = system.shutdown()
+    n = len(frames)
+    host_ms = [t * 1e3 for k, t in enumerate(system.frame_times) if k not in prof_frames]
+    lost = [e.frame_id for e in system.tracker.trajectory if e.lost]
+    out.update(
+        traj=traj, ate=_ate(scene, traj), path_m=SYSTEM_SPEED * n, launches=launches,
+        track_ms=float(np.median(host_ms)),
+        mapping_ms=summary.get("mapping", {}).get("median_ms", float("nan")),
+        n_mapped=summary.get("mapping", {}).get("n", 0),
+        ba_calls=system.local_mapper.ba_calls,
+        ba_device_ms=timed_ba.ms if timed_ba is not None else [],
+        keyframes=stats["n_keyframes"], points=stats["n_points"],
+        fast_frames=system._fast_frames, state=system.tracking_state, lost=lost,
+        kf_ids=_keyframe_ids(system.map),
+        ba_last=timed_ba.last if timed_ba is not None else None,
+    )
+    print(f"System ({name}) on {device}, {n} frames: state {out['state']}, lost {lost}, "
+          f"ATE {out['ate']:.4f} m over {out['path_m']:.1f} m, keyframes {out['keyframes']} "
+          f"(ids {out['kf_ids']}), points {out['points']}, BA calls "
+          f"{out['ba_calls']}, fast-path frames {out['fast_frames']}, patch_gather "
+          f"launches {launches} ({launches / n:g}/frame)")
+    print(f"System ({name}): median {out['track_ms']:.3f} ms per track_stereo (host clock, "
+          f"{len(host_ms)} frames outside the profile), mapping {out['mapping_ms']:.3f} ms "
+          f"per keyframe (median of {out['n_mapped']}), bundle_adjust "
+          f"{[round(t, 3) for t in out['ba_device_ms']]} ms per call (CUDA events)")
+    if not (out["state"] == TrackingState.OK and not lost and len(traj) == n):
+        raise SystemExit(f"System ({name}): state {out['state']}, lost frames {lost}, "
+                         f"{len(traj)} of {n} frames in the trajectory")
+    if not out["ate"] < MAX_ATE_SHARE * out["path_m"]:
+        raise SystemExit(f"System ({name}): ATE {out['ate']:.4f} m over {out['path_m']} m")
+    if mapping_gates and (out["keyframes"] < 2 or out["ba_calls"] < 1):
+        raise SystemExit(f"System ({name}): {out['keyframes']} keyframes, "
+                         f"{out['ba_calls']} BA calls")
+    if device == "cuda" and launches != 4 * n:
+        raise SystemExit(f"System ({name}): expected 4 patch_gather launches per frame, "
+                         f"got {launches / n:g}")
+    return out
+
+
+def profile_bundle_adjust(prob, kw):
+    """torch.profiler over one bundle_adjust call on (a)'s last problem:
+    device busy time, idle share and launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        local_ba.bundle_adjust(prob, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    n_pts = int(prob.point_valid.sum())
+    n_obs = int(prob.obs_valid.sum())
+    print(f"bundle_adjust problem: {int(prob.pose_valid.sum())} poses "
+          f"({int((prob.pose_valid & ~prob.pose_fixed).sum())} free), {n_pts} points, "
+          f"{n_obs} observations (caps {prob.poses.shape[0]} / {prob.points.shape[0]} / "
+          f"{prob.obs_valid.shape[1]})")
+    _device_summary(prof, 1, wall_ms, "bundle_adjust profile (one call)", top=8)
+
+
+def run_systems(card: str, device="cuda") -> dict:
+    """(a) host tracker + sync mapping, (b) the fast path, (c) async
+    mapping on the first ASYNC_FRAMES frames; (a)'s first CPU_FRAMES frames
+    against the port's CPU path. `device` "cpu" rehearses the phase
+    without a card (no profile, no launch gate)."""
+    scene, frames = render_system_frames(SYSTEM_FRAMES)
+    prof_at = PROFILE_AT if device == "cuda" else None
+    a = run_system("a: host tracker, sync mapping", scene, frames, device=device,
+                   profile_at=prof_at, snapshot_at=CPU_FRAMES)
+    b = run_system("b: device-resident fast path", scene, frames, device=device,
+                   profile_at=prof_at, device_resident_tracking=True)
+    if not b["fast_frames"] > SYSTEM_FRAMES / 2:
+        raise SystemExit(f"System (b): only {b['fast_frames']} of {SYSTEM_FRAMES} frames "
+                         f"on the fast path")
+    c = run_system("c: async mapping", scene, frames[:ASYNC_FRAMES], device=device,
+                   async_mapping=True)
+    a_ate = _ate(scene, a["traj"], frames=set(range(ASYNC_FRAMES)))
+    print(f"System (c) ATE {c['ate']:.4f} m against (a)'s {a_ate:.4f} m over the same "
+          f"{ASYNC_FRAMES} frames (bound 1.5x + 0.1 m, tests/test_async_mapping.py:131)")
+    if not c["ate"] <= 1.5 * a_ate + 0.1:
+        raise SystemExit("System (c): async ATE out of bound")
+
+    cpu = run_system("a on the CPU", scene, frames[:CPU_FRAMES], device="cpu",
+                     mapping_gates=False)
+    traj_g, kf_g, pts_g = a["snapshot"]
+    tg = {f: np.linalg.inv(T)[:3, 3] for f, T, _ in traj_g}
+    tc = {f: np.linalg.inv(T)[:3, 3] for f, T, _ in cpu["traj"]}
+    gap = max(float(np.abs(tg[f] - tc[f]).max()) for f in tc) if set(tg) == set(tc) else np.inf
+    print(f"System (a) card vs CPU over the first {CPU_FRAMES} frames: translation gap "
+          f"{gap:.3e} m (bound {MAX_SYSTEM_GAP_M}), keyframe ids {kf_g} vs {cpu['kf_ids']}, "
+          f"points {pts_g} vs {cpu['points']}")
+    if not (gap <= MAX_SYSTEM_GAP_M and kf_g == cpu["kf_ids"]
+            and abs(pts_g - cpu["points"]) <= 0.02 * cpu["points"]):
+        raise SystemExit("System (a): card and CPU path disagree")
+    if a["ba_last"] is not None:
+        profile_bundle_adjust(*a["ba_last"])
+    print(f"System summary on {card}: median ms per track_stereo (a) {a['track_ms']:.3f}, "
+          f"(b) {b['track_ms']:.3f}, (c) {c['track_ms']:.3f}; mapping ms per keyframe (a) "
+          f"{a['mapping_ms']:.3f}, (c) {c['mapping_ms']:.3f}; bundle_adjust device ms "
+          f"(a) {a['ba_device_ms']} over {a['ba_calls']} calls")
+    return dict(a=a, b=b, c=c)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -459,6 +685,8 @@ def main() -> int:
     profile_frames(seq, range(n_frames - 3, n_frames + 1))
     compare_with_cpu(cfg, full)
 
+    runs = run_systems(card)
+
     left = kernel["sites"][0]
     line = {"kernels": [{
         "name": "patch_gather", "route": "cuda",
@@ -471,6 +699,8 @@ def main() -> int:
         "warm_ms": left["warm_ms"], "plain_ms": left["plain_ms"],
         "bound_ms": left["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "canvas_builds": builds, "sites": kernel["sites"],
+        "launches_system": {k: r["launches"] for k, r in runs.items()},
+        "frames_system": {k: r["frames"] for k, r in runs.items()},
         "earlier_canvas": {"ms": kernel["canvas_ms"], "cold_ms": kernel["canvas_cold_ms"],
                            "launches": kernel["canvas_launches"]},
     }]}

@@ -1,15 +1,28 @@
-"""Configuration dataclasses read by the per-frame hot path.
+"""Configuration dataclasses of the port.
 
-A copy of the fields of ``pointslot_tpu/config.py`` (CameraConfig,
-ORBConfig and the SystemConfig fields the fused step reads), with the same
-defaults: KITTI tracking's 1242x375 stereo camera and the 1000-feature,
-8-level, scale-1.2 ORB budget.
+A copy of the fields of ``pointslot_tpu/config.py`` that the ported slices
+read, with the same defaults: KITTI tracking's 1242x375 stereo camera, the
+1000-feature, 8-level, scale-1.2 ORB budget, the tracking policy, the
+bundle-adjustment caps, loop closing and the runtime knobs. ``slot_mode``
+and ``loop.enabled`` keep the reference's defaults (mode 0, loop closing
+on); the System raises for what the port does not run yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Optional
+
+
+class SLOTMode:
+    """The five behavioral modes (reference include/Parameters.h:68-75)."""
+
+    SLAM = 0                 # pure stereo ORB-SLAM
+    DYNAMIC_SLAM = 1         # semantic dynamic SLAM: mask out dynamic regions
+    MANUAL_TRACKING = 2      # user-selected ROIs, object pipeline on those
+    AUTONOMOUS_DRIVING = 3   # online detector + MOT association in-loop
+    OFFLINE = 4              # offline GT detections/IDs (reproducibility mode)
 
 
 @dataclass(frozen=True)
@@ -20,13 +33,29 @@ class CameraConfig:
     fy: float = 721.5377
     cx: float = 609.5593
     cy: float = 172.8540
+    # distortion (KITTI is rectified; the port raises for nonzero values)
+    k1: float = 0.0
+    k2: float = 0.0
+    p1: float = 0.0
+    p2: float = 0.0
+    k3: float = 0.0
     width: int = 1242
     height: int = 375
     bf: float = 384.38148       # baseline * fx
+    # close/far point threshold in units of baseline (reference ThDepth)
+    th_depth: float = 50.0
 
     @property
     def baseline(self) -> float:
         return self.bf / self.fx
+
+    @property
+    def depth_threshold(self) -> float:
+        return self.th_depth * self.bf / self.fx
+
+    @property
+    def distorted(self) -> bool:
+        return any(v != 0 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
 
 
 @dataclass(frozen=True)
@@ -45,9 +74,110 @@ class ORBConfig:
 
 
 @dataclass(frozen=True)
+class MatcherConfig:
+    """Descriptor matching thresholds (reference src/ORBmatcher.cc:58-62)."""
+
+    th_low: int = 50
+    th_high: int = 100
+    th_high_dynamic: int = 130
+    radius_dynamic: float = 5.0
+    histo_length: int = 30
+    nn_ratio: float = 0.9
+
+
+@dataclass(frozen=True)
+class TrackingConfig:
+    """Camera-tracking policy knobs (reference src/Tracking.cc)."""
+
+    min_init_stereo_features: int = 500
+    min_matches_motion_model: int = 20
+    min_matches_ref_kf: int = 15
+    min_inliers_local_map: int = 30
+    min_frames_between_kf: int = 0
+    max_frames_between_kf: int = 10
+    kf_ref_ratio_many_close: float = 0.75
+    kf_ref_ratio: float = 0.9
+    min_tracked_close: int = 100
+    max_nontracked_close: int = 70
+    max_local_keyframes: int = 80
+    reset_max_kfs_when_lost: int = 5
+
+
+@dataclass(frozen=True)
+class BAConfig:
+    """Bundle-adjustment solver settings (reference src/Optimizer.cc)."""
+
+    pose_opt_stages: int = 4
+    pose_opt_iters_per_stage: int = 10
+    chi2_mono: float = 5.991
+    chi2_stereo: float = 7.815
+    local_ba_iters_stage1: int = 5
+    local_ba_iters_stage2: int = 10
+    # capacities of one windowed solve: poses, points, observations/point
+    max_ba_keyframes: int = 32
+    max_ba_points: int = 8192
+    max_obs_per_point: int = 16
+    lm_lambda_init: float = 1e-4
+    lm_lambda_factor: float = 10.0
+
+
+@dataclass(frozen=True)
+class LoopConfig:
+    """Loop closing (reference src/LoopClosing.cc). Not ported yet: a
+    System asks for ``enabled=False``."""
+
+    enabled: bool = True
+    covisibility_consistency_th: int = 3
+    sim3_ransac_iters: int = 64
+    min_sim3_inliers: int = 20
+    fix_scale: bool = True
+    pose_graph_cg_iters: int = 100
+    min_kfs_before_detect: int = 10
+    cooldown_kfs: int = 10
+    min_frame_distance: int = 20
+    max_candidates: int = 5
+    reloc_min_score: float = 0.015
+    reloc_max_candidates: int = 5
+    refine_transform_iters: int = 4
+    vocab_path: Optional[str] = None
+    vocab_as_tree: Optional[bool] = None
+    run_global_ba: bool = True
+    background_gba: bool = True
+    gba_max_points: int = 8192
+    gba_obs_per_point: int = 8
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    """Host-pipeline execution knobs."""
+
+    # run mapping in a worker thread (the reference's LocalMapping thread)
+    async_mapping: bool = False
+    mapping_every_n_frames: int = 1
+    # device-resident camera tracking through FusedTrackStep, with
+    # keyframe-rate device map tables (slam/fast_path.py)
+    device_resident_tracking: bool = False
+    fast_refresh_every: int = 10
+    use_native: bool = True
+    profile: bool = False
+    seed: int = 0
+    map_max_kfs: int = 256
+    map_max_points: int = 32768
+    pipeline_stages: bool = False
+    pipeline_child_platform: str = "cpu"
+
+
+@dataclass(frozen=True)
 class SystemConfig:
+    slot_mode: int = SLOTMode.SLAM
+    dynaslam_mode: int = 0
     camera: CameraConfig = field(default_factory=CameraConfig)
     orb: ORBConfig = field(default_factory=ORBConfig)
+    matcher: MatcherConfig = field(default_factory=MatcherConfig)
+    tracking: TrackingConfig = field(default_factory=TrackingConfig)
+    ba: BAConfig = field(default_factory=BAConfig)
+    loop: LoopConfig = field(default_factory=LoopConfig)
+    runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
 
     def replace(self, **kwargs) -> "SystemConfig":
         return dataclasses.replace(self, **kwargs)

@@ -14,7 +14,7 @@ device, chaining poses and velocities into the next step.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -78,12 +78,15 @@ class FusedTrackStep:
     predicted octave, valid (M,) bool. M is a static capacity; callers pad.
     """
 
-    def __init__(self, config: SystemConfig, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, config: SystemConfig, device="cuda",
+                 frontend: Optional[StereoFrontend] = None):
+        """`frontend`: a StereoFrontend to share (the System's); its device
+        is the step's. Without one the step builds its own on `device`."""
+        self.device = frontend.device if frontend is not None else resolve_device(device)
         self.cfg = config
         cam = config.camera
-        self.frontend = StereoFrontend(cam.height, cam.width, cam.fx, cam.bf,
-                                       config.orb, device=self.device)
+        self.frontend = frontend or StereoFrontend(cam.height, cam.width, cam.fx, cam.bf,
+                                                   config.orb, device=self.device)
         self._c = _Camera(config, self.device)
 
     def __call__(self, left, right, T_prev, velocity,

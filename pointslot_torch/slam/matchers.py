@@ -1,11 +1,17 @@
-"""Projection matching of map points to frame features.
+"""Projection matching and descriptor-table matching.
 
-Port of ``pointslot_tpu/slam/matchers.py::project_and_match`` with the
-object vmap written out: the map side carries a leading batch axis B (B = 1
-for the camera's local map, B = O for the object tables), the frame's
-features are shared. ``jax.ops.segment_min`` becomes ``scatter_reduce``
-with ``"amin"``; the ``.at[].set(mode="drop")`` write becomes a write into
-an N + 1 buffer whose last slot is then sliced off.
+Port of ``pointslot_tpu/slam/matchers.py``:
+
+- ``project_and_match`` with the object vmap written out: the map side
+  carries a leading batch axis B (B = 1 for the camera's local map, B = O
+  for the object tables), the frame's features are shared.
+  ``jax.ops.segment_min`` becomes ``scatter_reduce`` with ``"amin"``; the
+  ``.at[].set(mode="drop")`` write becomes a write into an N + 1 buffer
+  whose last slot is then sliced off.
+- ``brute_match``: mutual-best matching with the Lowe ratio and the
+  rotation histogram. ``torch.argmin`` breaks ties to the first index as
+  ``jnp.argmin`` does; ``lax.top_k``'s third-largest bin is a sort of the
+  30 bins.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from pointslot_torch.ops.hamming import hamming_table_popcount
 
 TH_LOW = 50
 TH_HIGH = 100
+HISTO_LENGTH = 30
 _BIG = 1 << 20
 
 
@@ -90,3 +97,50 @@ def project_and_match(
         n_matches=winner.sum(dim=1, dtype=torch.int32),
         visible=visible,
     )
+
+
+class BruteMatchResult(NamedTuple):
+    idx_b_for_a: torch.Tensor   # (NA,) int32 match in B or -1
+    n_matches: torch.Tensor     # () int32
+
+
+def brute_match(
+    desc_a: torch.Tensor, angle_a: torch.Tensor, valid_a: torch.Tensor,
+    desc_b: torch.Tensor, angle_b: torch.Tensor, valid_b: torch.Tensor,
+    nn_ratio: float = 0.9,
+    th_desc: int = TH_LOW,
+    check_rotation: bool = True,
+) -> BruteMatchResult:
+    """Mutual-best descriptor matching with Lowe ratio and rotation-histogram
+    filtering (keep the 3 dominant relative-orientation bins). Descriptors
+    are (N, 8) int32 words."""
+    NA = desc_a.shape[0]
+    dist = hamming_table_popcount(desc_a, desc_b)
+    dist = torch.where(valid_a[:, None] & valid_b[None, :], dist,
+                       torch.full_like(dist, _BIG))
+
+    # two smallest per row: the second from a copy with the best masked
+    best = torch.argmin(dist, dim=1)
+    d1 = dist.gather(1, best[:, None])[:, 0]
+    d2 = dist.scatter(1, best[:, None], _BIG).amin(dim=1)
+    ok = (d1 <= th_desc) & (d1.to(torch.float32) < nn_ratio * d2.to(torch.float32))
+
+    # mutual check: the best row of the column must be this row
+    rows = torch.arange(NA, device=dist.device)
+    col_best = torch.argmin(dist, dim=0)
+    ok = ok & (col_best[best] == rows)
+
+    if check_rotation:
+        two_pi = 2.0 * torch.pi
+        rot = torch.remainder(angle_a - angle_b[best], two_pi)
+        bins = torch.clamp((rot * (HISTO_LENGTH / two_pi)).to(torch.int32),
+                           0, HISTO_LENGTH - 1).long()
+        hist = torch.zeros(HISTO_LENGTH + 1, dtype=torch.int32, device=dist.device)
+        hist = hist.index_add(0, torch.where(ok, bins, torch.full_like(bins, HISTO_LENGTH)),
+                              torch.ones_like(bins, dtype=torch.int32))[:HISTO_LENGTH]
+        third = torch.sort(hist, descending=True).values[2]
+        keep_bin = hist >= torch.clamp(third, min=1)
+        ok = ok & keep_bin[bins]
+
+    out = torch.where(ok, best.to(torch.int32), torch.full_like(best, -1, dtype=torch.int32))
+    return BruteMatchResult(idx_b_for_a=out, n_matches=ok.sum(dtype=torch.int32))
