@@ -23,8 +23,11 @@ sm_90a card). Phases, in order; any failure exits non-zero:
    tests/test_slam_e2e.py, three ways -- (a) host tracker with sync
    mapping, (b) the device-resident fast path, (c) async mapping on the
    first 20 frames -- each gated on state, ATE, keyframes, BA calls and
-   4 patch-gather launches per frame; timings, a profile of 4 frames of
-   (a) and (b), and (a)'s first 6 frames against the port's CPU path;
+   4 patch-gather launches per frame (and, for (c), no keyframe the
+   mapping worker failed on); timings, a profile of 4 frames of (a) and
+   (b); (a)'s first 13 frames (through the third keyframe and its bundle
+   adjustment) against the port's CPU path, and (a)'s last bundle-
+   adjustment problem solved again on the CPU;
 6. one JSON line with every kernel's numbers;
 7. last line: {"ok": true, "device": {...}}.
 
@@ -60,7 +63,7 @@ MAX_POSE_GAP_M = 1e-3            # card vs CPU path, tests/test_torch_cuda.py
 SITES = ("left ORB", "right ORB", "right SAD", "fine")   # patch gathers, call order
 FLUSH_BYTES = 128 << 20          # L2 flush write, over twice the 50 MB L2
 CANVAS_OPS = ("aten::constant_pad_nd", "aten::stack", "aten::contiguous")
-SYSTEM_FRAMES, ASYNC_FRAMES, CPU_FRAMES = 40, 20, 6
+SYSTEM_FRAMES, ASYNC_FRAMES, CPU_FRAMES = 40, 20, 13
 SYSTEM_SPEED = 0.8               # m/frame, tests/test_slam_e2e.py:17
 MAX_ATE_SHARE = 0.02             # of the path length, tests/test_slam_e2e.py:45
 PROFILE_AT = 20                  # first of the 4 profiled System frames
@@ -486,7 +489,6 @@ class _TimedBA:
         self.inner, self.ms, self.last = local_ba.bundle_adjust, [], None
 
     def __call__(self, prob, **kw):
-        self.last = (prob, kw)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -494,16 +496,16 @@ class _TimedBA:
         end.record()
         end.synchronize()
         self.ms.append(start.elapsed_time(end))
+        self.last = (prob, kw, out)
         return out
 
 
 def run_system(name: str, scene, frames, device="cuda", profile_at=None,
-               snapshot_at=None, mapping_gates=True, **runtime) -> dict:
+               snapshot_at=None, **runtime) -> dict:
     """Drive System.track_stereo over `frames` on `device` with the patch
     gather's count set to 0 just before and read just after. Returns the
-    run's numbers; raises SystemExit when a gate fails (`mapping_gates`
-    False drops the keyframe and BA-call gates, for a run too short to
-    reach them)."""
+    run's numbers; raises SystemExit when a gate fails, and RuntimeError
+    from wait_for_mapping when the async mapping worker failed."""
     from torch.profiler import ProfilerActivity, profile
 
     system = System(system_config(**runtime), device=device)
@@ -556,12 +558,14 @@ def run_system(name: str, scene, frames, device="cuda", profile_at=None,
         fast_frames=system._fast_frames, state=system.tracking_state, lost=lost,
         kf_ids=_keyframe_ids(system.map),
         ba_last=timed_ba.last if timed_ba is not None else None,
+        mapping_errors=len(system.mapping_errors),
     )
     print(f"System ({name}) on {device}, {n} frames: state {out['state']}, lost {lost}, "
           f"ATE {out['ate']:.4f} m over {out['path_m']:.1f} m, keyframes {out['keyframes']} "
           f"(ids {out['kf_ids']}), points {out['points']}, BA calls "
           f"{out['ba_calls']}, fast-path frames {out['fast_frames']}, patch_gather "
-          f"launches {launches} ({launches / n:g}/frame)")
+          f"launches {launches} ({launches / n:g}/frame), mapping errors "
+          f"{out['mapping_errors']}")
     print(f"System ({name}): median {out['track_ms']:.3f} ms per track_stereo (host clock, "
           f"{len(host_ms)} frames outside the profile), mapping {out['mapping_ms']:.3f} ms "
           f"per keyframe (median of {out['n_mapped']}), bundle_adjust "
@@ -571,13 +575,55 @@ def run_system(name: str, scene, frames, device="cuda", profile_at=None,
                          f"{len(traj)} of {n} frames in the trajectory")
     if not out["ate"] < MAX_ATE_SHARE * out["path_m"]:
         raise SystemExit(f"System ({name}): ATE {out['ate']:.4f} m over {out['path_m']} m")
-    if mapping_gates and (out["keyframes"] < 2 or out["ba_calls"] < 1):
+    if out["keyframes"] < 2 or out["ba_calls"] < 1:
         raise SystemExit(f"System ({name}): {out['keyframes']} keyframes, "
                          f"{out['ba_calls']} BA calls")
     if device == "cuda" and launches != 4 * n:
         raise SystemExit(f"System ({name}): expected 4 patch_gather launches per frame, "
                          f"got {launches / n:g}")
     return out
+
+
+def check_bundle_adjust_on_cpu(prob, kw, got):
+    """A bundle_adjust problem of the card's run solved again on the port's
+    CPU path (the pose-block sums run in another order on the card), gated
+    at tests/test_torch_mapping.py's bounds: poses 1e-4, obs_inlier equal,
+    cost 1e-3 relative, and points 1e-3 m + 1e-4 relative for every point
+    whose depth is observed (an inlier stereo observation). A point seen
+    only monocularly can slide along its ray at almost no cost; for all
+    points the reprojection of every inlier observation is held instead,
+    within the image of the 1e-4 relative bound, fx * 1e-4 px."""
+    t0 = time.perf_counter()
+    cpu_prob = local_ba.BAProblem(*(t.cpu() for t in prob))
+    want = local_ba.bundle_adjust(cpu_prob, **kw)
+    cpu_s = time.perf_counter() - t0
+    got = local_ba.BAResult(*(t.cpu() for t in got))
+    pose_gap = float((got.poses - want.poses).abs().max())
+    inliers_differ = int((got.obs_inlier != want.obs_inlier).sum())
+    cost_rel = abs(float(got.cost) - float(want.cost)) / abs(float(want.cost))
+    excess = ((got.points - want.points).abs()
+              - (1e-3 + 1e-4 * want.points.abs())).amax(dim=1)
+    depth_seen = (want.obs_inlier & cpu_prob.obs_stereo).any(dim=1) & cpu_prob.point_valid
+    beyond = (excess > 0) & cpu_prob.point_valid
+    point_gap = float((got.points - want.points)[depth_seen].abs().max())
+    res_got = local_ba._residuals_only(got.poses, got.points, cpu_prob, **kw)[0]
+    res_want = local_ba._residuals_only(want.poses, want.points, cpu_prob, **kw)[0]
+    rows = torch.stack([torch.ones_like(cpu_prob.obs_stereo), torch.ones_like(cpu_prob.obs_stereo),
+                        cpu_prob.obs_stereo], dim=-1) & want.obs_inlier[..., None]
+    px_gap = float(torch.where(rows, (res_got - res_want).abs(), 0.0).max())
+    px_bound = kw["fx"] * 1e-4
+    print(f"bundle_adjust card vs CPU on (a)'s last problem ({int(cpu_prob.point_valid.sum())} "
+          f"points, {int(depth_seen.sum())} with a stereo inlier; CPU {cpu_s:.1f} s): pose gap "
+          f"{pose_gap:.3e} (bound 1e-4), point gap {point_gap:.3e} m on the depth-observed "
+          f"points (bound 1e-3 m + 1e-4 relative), points beyond that bound {int(beyond.sum())} "
+          f"({int((beyond & depth_seen).sum())} depth-observed, largest gap "
+          f"{float((got.points - want.points).abs().amax(dim=1).max()):.3e} m), reprojection "
+          f"gap {px_gap:.3e} px (bound {px_bound:.4f}), obs_inlier differing {inliers_differ} "
+          f"of {int(cpu_prob.obs_valid.sum())} (bound 0), cost {float(got.cost):.6g} vs "
+          f"{float(want.cost):.6g} (relative {cost_rel:.3e}, bound 1e-3)")
+    if not (pose_gap <= 1e-4 and not bool((beyond & depth_seen).any()) and px_gap <= px_bound
+            and inliers_differ == 0 and cost_rel <= 1e-3):
+        raise SystemExit("bundle_adjust: card and CPU path disagree")
 
 
 def profile_bundle_adjust(prob, kw):
@@ -622,8 +668,7 @@ def run_systems(card: str, device="cuda") -> dict:
     if not c["ate"] <= 1.5 * a_ate + 0.1:
         raise SystemExit("System (c): async ATE out of bound")
 
-    cpu = run_system("a on the CPU", scene, frames[:CPU_FRAMES], device="cpu",
-                     mapping_gates=False)
+    cpu = run_system("a on the CPU", scene, frames[:CPU_FRAMES], device="cpu")
     traj_g, kf_g, pts_g = a["snapshot"]
     tg = {f: np.linalg.inv(T)[:3, 3] for f, T, _ in traj_g}
     tc = {f: np.linalg.inv(T)[:3, 3] for f, T, _ in cpu["traj"]}
@@ -634,8 +679,9 @@ def run_systems(card: str, device="cuda") -> dict:
     if not (gap <= MAX_SYSTEM_GAP_M and kf_g == cpu["kf_ids"]
             and abs(pts_g - cpu["points"]) <= 0.02 * cpu["points"]):
         raise SystemExit("System (a): card and CPU path disagree")
-    if a["ba_last"] is not None:
-        profile_bundle_adjust(*a["ba_last"])
+    if device == "cuda":
+        check_bundle_adjust_on_cpu(*a["ba_last"])
+        profile_bundle_adjust(*a["ba_last"][:2])
     print(f"System summary on {card}: median ms per track_stereo (a) {a['track_ms']:.3f}, "
           f"(b) {b['track_ms']:.3f}, (c) {c['track_ms']:.3f}; mapping ms per keyframe (a) "
           f"{a['mapping_ms']:.3f}, (c) {c['mapping_ms']:.3f}; bundle_adjust device ms "

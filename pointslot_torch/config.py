@@ -3,16 +3,17 @@
 A copy of the fields of ``pointslot_tpu/config.py`` that the ported slices
 read, with the same defaults: KITTI tracking's 1242x375 stereo camera, the
 1000-feature, 8-level, scale-1.2 ORB budget, the tracking policy, the
-bundle-adjustment caps, loop closing and the runtime knobs. ``slot_mode``
-and ``loop.enabled`` keep the reference's defaults (mode 0, loop closing
-on); the System raises for what the port does not run yet.
+bundle-adjustment caps and chi2 gates, and the runtime knobs. A field joins
+with the slice that reads it. ``slot_mode``, ``loop.enabled``,
+``runtime.pipeline_stages`` and the distortion coefficients keep the
+reference's defaults and exist so that the System can raise for what the
+port does not run yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
 
 
 class SLOTMode:
@@ -74,18 +75,6 @@ class ORBConfig:
 
 
 @dataclass(frozen=True)
-class MatcherConfig:
-    """Descriptor matching thresholds (reference src/ORBmatcher.cc:58-62)."""
-
-    th_low: int = 50
-    th_high: int = 100
-    th_high_dynamic: int = 130
-    radius_dynamic: float = 5.0
-    histo_length: int = 30
-    nn_ratio: float = 0.9
-
-
-@dataclass(frozen=True)
 class TrackingConfig:
     """Camera-tracking policy knobs (reference src/Tracking.cc)."""
 
@@ -107,18 +96,12 @@ class TrackingConfig:
 class BAConfig:
     """Bundle-adjustment solver settings (reference src/Optimizer.cc)."""
 
-    pose_opt_stages: int = 4
-    pose_opt_iters_per_stage: int = 10
     chi2_mono: float = 5.991
     chi2_stereo: float = 7.815
-    local_ba_iters_stage1: int = 5
-    local_ba_iters_stage2: int = 10
     # capacities of one windowed solve: poses, points, observations/point
     max_ba_keyframes: int = 32
     max_ba_points: int = 8192
     max_obs_per_point: int = 16
-    lm_lambda_init: float = 1e-4
-    lm_lambda_factor: float = 10.0
 
 
 @dataclass(frozen=True)
@@ -127,24 +110,6 @@ class LoopConfig:
     System asks for ``enabled=False``."""
 
     enabled: bool = True
-    covisibility_consistency_th: int = 3
-    sim3_ransac_iters: int = 64
-    min_sim3_inliers: int = 20
-    fix_scale: bool = True
-    pose_graph_cg_iters: int = 100
-    min_kfs_before_detect: int = 10
-    cooldown_kfs: int = 10
-    min_frame_distance: int = 20
-    max_candidates: int = 5
-    reloc_min_score: float = 0.015
-    reloc_max_candidates: int = 5
-    refine_transform_iters: int = 4
-    vocab_path: Optional[str] = None
-    vocab_as_tree: Optional[bool] = None
-    run_global_ba: bool = True
-    background_gba: bool = True
-    gba_max_points: int = 8192
-    gba_obs_per_point: int = 8
 
 
 @dataclass(frozen=True)
@@ -153,27 +118,21 @@ class RuntimeConfig:
 
     # run mapping in a worker thread (the reference's LocalMapping thread)
     async_mapping: bool = False
-    mapping_every_n_frames: int = 1
     # device-resident camera tracking through FusedTrackStep, with
     # keyframe-rate device map tables (slam/fast_path.py)
     device_resident_tracking: bool = False
     fast_refresh_every: int = 10
-    use_native: bool = True
     profile: bool = False
-    seed: int = 0
     map_max_kfs: int = 256
     map_max_points: int = 32768
     pipeline_stages: bool = False
-    pipeline_child_platform: str = "cpu"
 
 
 @dataclass(frozen=True)
 class SystemConfig:
     slot_mode: int = SLOTMode.SLAM
-    dynaslam_mode: int = 0
     camera: CameraConfig = field(default_factory=CameraConfig)
     orb: ORBConfig = field(default_factory=ORBConfig)
-    matcher: MatcherConfig = field(default_factory=MatcherConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
     ba: BAConfig = field(default_factory=BAConfig)
     loop: LoopConfig = field(default_factory=LoopConfig)

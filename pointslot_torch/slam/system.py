@@ -84,6 +84,9 @@ class System:
         self._ba_skips = 0   # consecutive InterruptBA skips (capped at 2)
         self._pending_cam_kfs = 0          # camera KFs waiting in the queue
         self._pending_cam_lock = threading.Lock()
+        # what the async worker caught, as (keyframe, exception); raised by
+        # wait_for_mapping and shutdown
+        self.mapping_errors = []
         if self.cfg.runtime.async_mapping:
             self._mapping_thread = threading.Thread(target=self._mapping_worker, daemon=True)
             self._mapping_thread.start()
@@ -125,15 +128,17 @@ class System:
         """Async mapping thread (the reference's LocalMapping thread,
         src/System.cc:106-118). Camera work shares MapState with tracking
         under map_lock; the mapper's device work runs unlocked and its
-        results are on the host before it merges them."""
+        results are on the host before it merges them. A keyframe that
+        fails is recorded and the worker goes on with the next one."""
         while True:
             item = self._mapping_queue.get()
             try:
                 if item is None:
                     return
                 self._process_keyframe_sync(item[1])
-            except Exception:  # pragma: no cover - worker must not die silently
+            except Exception as e:
                 traceback.print_exc()
+                self.mapping_errors.append((item[1], e))
             finally:
                 self._mapping_queue.task_done()
 
@@ -208,16 +213,25 @@ class System:
 
     def wait_for_mapping(self):
         """Block until the async mapping queue is drained AND the in-flight
-        task (if any) has finished."""
+        task (if any) has finished; raise if the worker failed on a keyframe."""
         if self._mapping_thread is not None:
             self._mapping_queue.join()
+        self._raise_mapping_errors()
+
+    def _raise_mapping_errors(self):
+        if self.mapping_errors:
+            kf, first = self.mapping_errors[0]
+            raise RuntimeError(
+                f"async mapping failed on {len(self.mapping_errors)} keyframe(s), "
+                f"the first on keyframe {kf}") from first
 
     def shutdown(self):
-        self.wait_for_mapping()
         if self._mapping_thread is not None:
+            self._mapping_queue.join()
             self._mapping_queue.put(None)
             self._mapping_thread.join(timeout=10)
             self._mapping_thread = None
+        self._raise_mapping_errors()
         med = float(np.median(self.frame_times)) if self.frame_times else 0.0
         mean = float(np.mean(self.frame_times)) if self.frame_times else 0.0
         out = {"median_track_s": med, "mean_track_s": mean,

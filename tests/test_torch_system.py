@@ -15,11 +15,13 @@ Bounds and why:
   thresholds (reprojection gates, chi2 gates) that a float32 ulp can flip
   for a point or two.
 The tracker + mapper pair is fed the same FrameRecords (the port's CPU
-frontend); the two Systems each run their own frontend on the same images,
+frontend); the two Systems, with the host tracker and with the
+device-resident fast path, each run their own frontend on the same images,
 whose keypoints may differ at FAST-cell ties (tests/test_torch_fused.py).
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -34,6 +36,7 @@ from pointslot_torch import config, convert
 from pointslot_torch.datasets import synthetic
 from pointslot_torch.io.writers import read_trajectory_kitti
 from pointslot_torch.ops.frontend import StereoFrontend
+from pointslot_torch.slam.fast_path import DeviceTrackingPath
 from pointslot_torch.slam.local_mapping import LocalMapper
 from pointslot_torch.slam.map_state import MapState
 from pointslot_torch.slam.system import System
@@ -132,17 +135,22 @@ def test_tracker_and_mapper_match_reference(scene):
     assert _ate(sc, tracker.camera_trajectory()) < 0.02 * 0.8 * N
 
 
+def _drive(system, frames):
+    for i, (left, right) in enumerate(frames):
+        system.track_stereo(left, right, timestamp=i * 0.1, frame_id=i)
+    system.wait_for_mapping()
+    return system
+
+
+def _run(frames, **runtime):
+    return _drive(System(_configs(config, **runtime), device="cpu"), frames)
+
+
 @pytest.fixture(scope="module")
 def systems(scene):
     """The two Systems on the same images (the JAX one once per module)."""
     _, frames = scene
-    out = []
-    for system in (System(_configs(config), device="cpu"),
-                   jsystem.System(_configs(jconfig))):
-        for i, (left, right) in enumerate(frames):
-            system.track_stereo(left, right, timestamp=i * 0.1, frame_id=i)
-        out.append(system)
-    return out
+    return _run(frames), _drive(jsystem.System(_configs(jconfig)), frames)
 
 
 def test_system_matches_reference(scene, systems):
@@ -171,28 +179,125 @@ def test_system_trajectory_export(tmp_path, systems):
     assert stats["n_keyframes"] == port.map.n_keyframes() >= 2
 
 
-def _run(frames, **runtime):
-    system = System(_configs(config, **runtime), device="cpu")
-    for i, (left, right) in enumerate(frames):
-        system.track_stereo(left, right, timestamp=i * 0.1, frame_id=i)
-    system.wait_for_mapping()
-    return system
+class _Mirror:
+    """Runs the port's DeviceTrackingPath beside the JAX one inside the JAX
+    System: each refresh, fused-step frame and materialize of the JAX path
+    is first done by the port's path, from a copy of the same map, tracker
+    state and device pose/velocity chain, on the same images."""
+
+    def __init__(self, jpath, path):
+        self.tables, self.frames, self.keyframes = [], [], []
+        jrefresh, jtrack, jmaterialize = jpath.refresh, jpath.track, jpath.materialize
+
+        def refresh(m, ref_kf):
+            path.refresh(convert.map_state_from_arrays(m), ref_kf)
+            jrefresh(m, ref_kf)
+            self.tables.append((path.table_pts, path._tables, jpath.table_pts, jpath._tables))
+
+        def track(tracker, left, right, frame_id, gate=None):
+            state = SimpleNamespace(
+                map=convert.map_state_from_arrays(tracker.map), ref_kf=tracker.ref_kf,
+                last_frame=SimpleNamespace(T_cw=np.array(tracker.last_frame.T_cw)),
+                velocity=np.array(tracker.velocity), n_matches_inliers=None)
+            path._T_dev, path._vel_dev = (
+                None if v is None else torch.from_numpy(np.array(v))
+                for v in (jpath._T_dev, jpath._vel_dev))
+            got = path.track(state, left, right, frame_id)
+            want = jtrack(tracker, left, right, frame_id, gate=gate)
+            # keyframe creation binds new points into the frame later
+            self.frames.append((got, state, want, SimpleNamespace(
+                point_idx=None if want is None else want.point_idx.copy(),
+                ref_kf=tracker.ref_kf, velocity=tracker.velocity,
+                n_matches_inliers=tracker.n_matches_inliers,
+                pt_visible=tracker.map.pt_visible.copy(),
+                pt_found=tracker.map.pt_found.copy())))
+            return want
+
+        def materialize(frame):
+            got = path.materialize(self.frames[-1][0])
+            want = jmaterialize(frame)
+            self.keyframes.append((got, want))
+            return want
+
+        jpath.refresh, jpath.track, jpath.materialize = refresh, track, materialize
 
 
-def test_fast_path_used_and_agrees_with_host_tracker(scene, systems):
-    """tests/test_fast_path.py:36-60 for the port: the fused step carries
-    most frames, stays accurate and close to the host tracker."""
-    sc, frames = scene
-    fast = _run(frames, device_resident_tracking=True)
-    traj = fast.camera_trajectory()
-    assert fast._fast_frames >= N // 2, fast._fast_frames
-    assert len(traj) >= N - 2
-    assert _ate(sc, traj) < 0.15
+@pytest.fixture(scope="module")
+def fast_systems(scene):
+    """The port's fast-path System, and the JAX one with the port's
+    DeviceTrackingPath mirrored inside it (the JAX System once per module)."""
+    _, frames = scene
+    ref = jsystem.System(_configs(jconfig, device_resident_tracking=True))
+    path = DeviceTrackingPath(_configs(config), StereoFrontend(
+        CAM["height"], CAM["width"], CAM["fx"], CAM["bf"], device="cpu"))
+    mirror = _Mirror(ref._fast, path)
+    _drive(ref, frames)
+    return _run(frames, device_resident_tracking=True), ref, mirror
+
+
+def test_device_tracking_path_matches_reference(fast_systems):
+    """DeviceTrackingPath of both packages from the same state, frame by
+    frame. Bounds: the device tables equal exactly (the same host code on
+    the same map); the same frames accepted; T_cw and the velocity within
+    1e-4 (the fused step's bound in tests/test_torch_fused.py: float32 LM
+    sums in another order); at most 0.5 % of the bindings differ and
+    n_inliers within 2 (a keypoint at a FAST-cell tie, as there); the map's
+    visibility counts and the re-elected reference keyframe equal.
+
+    Whole fast-path Systems are not held to the host tracker's bounds
+    against each other: the table's predicted octave is
+    ceil(log(max_dist / dist) / log 1.2) with dist taken from the reference
+    keyframe, and for that keyframe's own points the ratio is exactly
+    1.2**level, so an ulp of a point's position (the two frontends' depths
+    differ in the fourth decimal) moves the octave by one. On this scene
+    that flips the octave of many table rows, and the JAX step itself,
+    given the port's tables, lands on the port's pose, centimetres from its
+    own."""
+    _, ref, mirror = fast_systems
+    assert len(mirror.tables) >= 2
+    for pts, tables, jpts, jtables in mirror.tables:
+        np.testing.assert_array_equal(pts, jpts)
+        pos, desc, lvl, val = (t.numpy() for t in tables)
+        jpos, jdesc, jlvl, jval = (np.asarray(t) for t in jtables)
+        np.testing.assert_array_equal(pos, jpos)
+        np.testing.assert_array_equal(desc.view(np.uint32), jdesc)
+        np.testing.assert_array_equal(lvl, jlvl)
+        np.testing.assert_array_equal(val, jval)
+    assert len(mirror.frames) == ref._fast_frames >= N // 2
+    for got, state, want, after in mirror.frames:
+        assert (got is None) == (want is None)
+        if want is None:
+            continue
+        np.testing.assert_allclose(got.T_cw, want.T_cw, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(state.velocity, after.velocity, rtol=0, atol=1e-4)
+        differ = int((got.point_idx != after.point_idx).sum())
+        assert differ <= 0.005 * len(after.point_idx), differ
+        assert abs(state.n_matches_inliers - after.n_matches_inliers) <= 2
+        assert state.ref_kf == after.ref_kf
+        np.testing.assert_array_equal(state.map.pt_visible, after.pt_visible)
+        assert int(np.abs(state.map.pt_found - after.pt_found).sum()) <= differ
+    assert len(mirror.keyframes) >= 1
+    for got, want in mirror.keyframes:
+        assert (got.xy != want.xy).any(axis=1).sum() <= 0.005 * len(want.xy)
+        np.testing.assert_array_equal(got.level, want.level)
+
+
+def test_fast_path_used_and_agrees_with_host_tracker(scene, systems, fast_systems):
+    """tests/test_fast_path.py:36-60 for the port and for the JAX System on
+    the same images: the fused step carries most frames, stays accurate and
+    close to the host tracker."""
+    sc, _ = scene
+    fast, ref, _ = fast_systems
+    for system, host in ((fast, systems[0]), (ref, systems[1])):
+        traj = system.camera_trajectory()
+        assert system._fast_frames >= N // 2, system._fast_frames
+        assert len(traj) >= N - 2
+        assert _ate(sc, traj) < 0.15
+        tf, th = _translations(traj), _translations(host.camera_trajectory())
+        common = set(tf) & set(th)
+        assert len(common) >= N - 3
+        assert np.median([np.linalg.norm(tf[f] - th[f]) for f in common]) < 0.1
     assert fast.shutdown()["n_keyframes"] >= 2
-    tf, th = _translations(traj), _translations(systems[0].camera_trajectory())
-    common = set(tf) & set(th)
-    assert len(common) >= N - 3
-    assert np.median([np.linalg.norm(tf[f] - th[f]) for f in common]) < 0.1
     for kf in fast.map.keyframe_ids():   # keyframes carry full features
         assert fast.map.kf_feat_valid[kf].sum() > 100
         assert (fast.map.kf_point_idx[kf] >= 0).sum() > 30
@@ -201,6 +306,7 @@ def test_fast_path_used_and_agrees_with_host_tracker(scene, systems):
 def test_async_mapping_tracks_ok(scene):
     sc, frames = scene
     system = _run(frames, async_mapping=True)
+    assert system.mapping_errors == []
     assert system.tracking_state == TrackingState.OK
     assert system.local_mapper.ba_calls >= 1
     traj = system.camera_trajectory()
@@ -208,6 +314,25 @@ def test_async_mapping_tracks_ok(scene):
     assert system._mapping_thread is None
     assert stats["n_keyframes"] >= 2
     assert _ate(sc, traj) < 0.15
+
+
+def test_async_mapping_failure_is_raised(scene):
+    """A keyframe that the mapping worker fails on is raised by
+    wait_for_mapping and shutdown, not only printed."""
+    _, frames = scene
+    system = System(_configs(config, async_mapping=True), device="cpu")
+
+    def fail(kf, skip_ba=False):
+        raise ValueError(f"mapping keyframe {kf}")
+
+    system.local_mapper.process_keyframe = fail
+    system.track_stereo(*frames[0], timestamp=0.0, frame_id=0)   # the first keyframe
+    with pytest.raises(RuntimeError, match="async mapping failed on 1 keyframe") as err:
+        system.wait_for_mapping()
+    assert isinstance(err.value.__cause__, ValueError)
+    with pytest.raises(RuntimeError, match="async mapping failed"):
+        system.shutdown()
+    assert system._mapping_thread is None
 
 
 @pytest.mark.parametrize("change, item", [
