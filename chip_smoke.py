@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive pointslot_torch's per-frame hot path and its mode-0 System on one
-CUDA card.
+"""Drive pointslot_torch's per-frame hot path and its mode-0 and mode-4
+Systems on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -27,10 +27,28 @@ sm_90a card). Phases, in order; any failure exits non-zero:
    mapping worker failed on); timings, a profile of 4 frames of (a) and
    (b); (a)'s first 13 frames (through the third keyframe and its bundle
    adjustment) against the port's CPU path, and (a)'s last bundle-
-   adjustment problem solved again on the CPU;
-6. one JSON line with every kernel's numbers;
-7. last line: {"ok": true, "device": {...}}.
+   adjustment problem solved again on the CPU and twice on the card (bit
+   for bit);
+6. mode-4 System: SLOT mode 4 (offline detections) at full KITTI width
+   (default camera, ORB and ObjectConfig but tests/test_object_slot.py's
+   small-object thresholds; loop closing off) on 20 frames of that file's
+   two-object scene (seed 31), two ways -- (d) host tracker with sync
+   mapping, the object origin at the offline centre; (e) the device-
+   resident fast path with async mapping, the origin from the points and
+   fine_tune_with_bbox -- each gated on state, ATE, keyframes, BA calls,
+   the median object centre error, a long track flagged dynamic, an
+   object BA call, no failure in the async worker and 4 patch-gather
+   launches per frame plus 4 per frame with detections; a profile of 4
+   frames of (d); (e)'s first 6 gated fused-step frames redone on the
+   port's CPU path from the same state (pose, bindings, valid flags); (d)'s
+   first 8 frames against the port's CPU path at the CPU System test's
+   bounds; (d)'s last object BA problem solved twice on the card (bit for
+   bit);
+7. one JSON line with every kernel's numbers;
+8. last line: {"ok": true, "device": {...}}.
 
+Depth cuts, for the time limit: the mode-0 System runs 40 frames (async
+20), the mode-4 System 20; none was cut further by this phase's addition.
 Needs no network; builds into build/kernels/.
 """
 
@@ -38,15 +56,21 @@ import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from pointslot_torch import convert, kernels
-from pointslot_torch.config import CameraConfig, LoopConfig, RuntimeConfig, SystemConfig
+from pointslot_torch.config import (CameraConfig, LoopConfig, ObjectConfig, RuntimeConfig,
+                                    SLOTMode, SystemConfig, TrackingConfig)
 from pointslot_torch.datasets import synthetic
 from pointslot_torch.ops import patch
+from pointslot_torch.ops.frontend import StereoFrontend
 from pointslot_torch.ops.fused_track import FusedFrameStep
+from pointslot_torch.slam.fast_path import DeviceTrackingPath
+from pointslot_torch.slam.object_system import heading_y
+from pointslot_torch.slam.objects import Detection
 from pointslot_torch.slam.system import System
 from pointslot_torch.slam.tracking import TrackingState
 from pointslot_torch.solvers import local_ba
@@ -68,6 +92,13 @@ SYSTEM_SPEED = 0.8               # m/frame, tests/test_slam_e2e.py:17
 MAX_ATE_SHARE = 0.02             # of the path length, tests/test_slam_e2e.py:45
 PROFILE_AT = 20                  # first of the 4 profiled System frames
 MAX_SYSTEM_GAP_M = 5e-3          # card vs CPU System, tests/test_torch_system.py
+OBJECT_FRAMES, CPU_OBJECT_FRAMES = 20, 8
+MIRRORED_FAST_FRAMES = 6         # (e)'s first fused-step frames redone on the CPU path
+OBJECT_PROFILE_AT = 12           # first of the 4 profiled mode-4 frames
+MIN_OBJECT_SPAN = 15             # frames both objects stay in view from frame 0
+MAX_OBJ_CENTER_ERR_M = 0.5       # median, tests/test_object_slot.py:88
+MAX_OBJ_GAP_M, MAX_YAW_GAP = 1e-2, 1e-3   # card vs CPU, tests/test_torch_object_system.py
+MAX_OBJ_POINT_GAP = 0.05         # object point counts, same file
 
 
 def _capture(fn, reps: int) -> torch.cuda.CUDAGraph:
@@ -482,37 +513,137 @@ def _keyframe_ids(m):
 
 
 class _TimedBA:
-    """Wraps local_ba.bundle_adjust to time each call between CUDA events
-    on the device (the mapper copies the result to the host right after)."""
+    """Wraps local_ba.bundle_adjust and bundle_adjust_batched to time each
+    call between CUDA events on the device (the callers copy the result to
+    the host right after) and keep the last problem of each kind: the
+    camera mapper solves with bundle_adjust, the object system with
+    bundle_adjust_batched."""
 
     def __init__(self):
-        self.inner, self.ms, self.last = local_ba.bundle_adjust, [], None
+        self.single, self.batched = local_ba.bundle_adjust, local_ba.bundle_adjust_batched
+        self.ms = {"camera": [], "object": []}
+        self.last = {}
 
-    def __call__(self, prob, **kw):
+    def _timed(self, fn, kind, prob, kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.inner(prob, **kw)
+        out = fn(prob, **kw)
         end.record()
         end.synchronize()
-        self.ms.append(start.elapsed_time(end))
-        self.last = (prob, kw, out)
+        self.ms[kind].append(start.elapsed_time(end))
+        self.last[kind] = (fn, prob, kw, out)
         return out
+
+    def install(self):
+        local_ba.bundle_adjust = lambda prob, **kw: self._timed(self.single, "camera", prob, kw)
+        local_ba.bundle_adjust_batched = lambda probs, **kw: self._timed(
+            self.batched, "object", probs, kw)
+
+    def remove(self):
+        local_ba.bundle_adjust, local_ba.bundle_adjust_batched = self.single, self.batched
+
+
+class FastPathMirror:
+    """The first `n` fused-step frames of a System's DeviceTrackingPath done
+    again, before the card does them, by a DeviceTrackingPath on the port's
+    CPU path: from copies of the card's device tables, its pose/velocity
+    chain, the map and the tracker state, on the same images under the same
+    gate (mode 4's background mask). Per frame: the same acceptance, the
+    camera translation within MAX_POSE_GAP_M, the bindings and the valid
+    flags differing on at most MAX_KEYPOINTS_DIFFERING of the features, and
+    n_inliers within 2 (tests/test_torch_cuda.py's card-vs-CPU bounds)."""
+
+    def __init__(self, system, n: int):
+        fast, cfg = system._fast, system.cfg
+        cam = cfg.camera
+        self.cpu = DeviceTrackingPath(cfg, StereoFrontend(cam.height, cam.width, cam.fx, cam.bf,
+                                                          cfg.orb, device="cpu"))
+        self.n, self.rows = n, []
+        track = fast.track
+
+        def mirrored(tracker, left, right, frame_id, gate=None):
+            if len(self.rows) >= n:
+                return track(tracker, left, right, frame_id, gate=gate)
+            cpu = self.cpu
+            cpu.table_pts = fast.table_pts.copy()
+            cpu._tables = tuple(t.cpu() for t in fast._tables)
+            cpu._T_dev, cpu._vel_dev = (None if v is None else v.cpu()
+                                        for v in (fast._T_dev, fast._vel_dev))
+            state = SimpleNamespace(
+                map=convert.map_state_from_arrays(tracker.map), ref_kf=tracker.ref_kf,
+                last_frame=SimpleNamespace(T_cw=np.array(tracker.last_frame.T_cw)),
+                velocity=np.array(tracker.velocity), n_matches_inliers=None)
+            want = cpu.track(state, left, right, frame_id, gate=gate)
+            got = track(tracker, left, right, frame_id, gate=gate)
+            row = dict(frame=frame_id, gate=gate is not None, accepted=(got is not None,
+                                                                       want is not None))
+            if got is not None and want is not None:
+                n_feat = len(want.valid)
+                row.update(
+                    pose_gap=float(np.abs(got.T_cw[:3, 3] - want.T_cw[:3, 3]).max()),
+                    bind_differ=int((got.point_idx != want.point_idx).sum()),
+                    valid_differ=int((got.valid != want.valid).sum()), features=n_feat,
+                    inliers=(tracker.n_matches_inliers, state.n_matches_inliers))
+            self.rows.append(row)
+            return got
+
+        fast.track = mirrored
+
+    def check(self, name: str) -> None:
+        print(f"System ({name}) fast path, card vs CPU path from the same state, first "
+              f"{len(self.rows)} fused-step frames: {self.rows}")
+        bad = [r for r in self.rows
+               if r["accepted"][0] != r["accepted"][1]
+               or ("pose_gap" in r
+                   and not (r["pose_gap"] <= MAX_POSE_GAP_M
+                            and r["bind_differ"] <= MAX_KEYPOINTS_DIFFERING * r["features"]
+                            and r["valid_differ"] <= MAX_KEYPOINTS_DIFFERING * r["features"]
+                            and abs(r["inliers"][0] - r["inliers"][1]) <= 2))]
+        if len(self.rows) < self.n or bad:
+            raise SystemExit(f"System ({name}): the fast path's card and CPU steps disagree "
+                             f"({len(self.rows)} of {self.n} frames mirrored, failing {bad})")
+
+
+def _track(system, frame, i: int):
+    """One track_stereo call; a mode-4 frame carries its detections and
+    instance mask."""
+    left, right, *objs = frame
+    kw = dict(detections=objs[0], instance_mask=objs[1]) if objs else {}
+    system.track_stereo(left, right, timestamp=i * 0.1, frame_id=i, **kw)
+
+
+def _object_center_errors(scene, tracks):
+    """Translation error of every (frame, track) camera-from-object pose."""
+    errs = []
+    for track in tracks:
+        gt = next(o for o in scene.objects if o.track_id == track.track_id)
+        for f, T_co in track.poses_cf.items():
+            gt_T_co = np.linalg.inv(scene.poses_world[f]) @ gt.poses_world[f]
+            errs.append(np.linalg.norm(T_co[:3, 3] - gt_T_co[:3, 3]))
+    return errs
 
 
 def run_system(name: str, scene, frames, device="cuda", profile_at=None,
-               snapshot_at=None, **runtime) -> dict:
+               snapshot_at=None, config_fn=None, gate_objects=True, mirror_fast=0,
+               **runtime) -> dict:
     """Drive System.track_stereo over `frames` on `device` with the patch
-    gather's count set to 0 just before and read just after. Returns the
-    run's numbers; raises SystemExit when a gate fails, and RuntimeError
-    from wait_for_mapping when the async mapping worker failed."""
+    gather's count set to 0 just before and read just after; `config_fn`
+    (system_config by default) makes the configuration from `runtime`;
+    `gate_objects` holds a mode-4 run to the object gates; `mirror_fast`
+    fused-step frames are redone on the CPU path (FastPathMirror, not
+    counted: its CPU wrapper launches no kernel). Returns the run's numbers;
+    raises SystemExit when a gate fails, and RuntimeError from
+    wait_for_mapping when the async mapping worker failed."""
     from torch.profiler import ProfilerActivity, profile
 
-    system = System(system_config(**runtime), device=device)
+    system = System((config_fn or system_config)(**runtime), device=device)
+    objsys = system._object_system
+    mirror = FastPathMirror(system, mirror_fast) if mirror_fast else None
     PROFILER.reset()
     timed_ba = _TimedBA() if device == "cuda" else None
     if timed_ba is not None:
-        local_ba.bundle_adjust = timed_ba
+        timed_ba.install()
     prof_frames = set(range(profile_at, profile_at + 4)) if profile_at is not None else set()
     out = dict(name=name, frames=len(frames))
     patch.LAUNCHES = 0
@@ -524,28 +655,31 @@ def run_system(name: str, scene, frames, device="cuda", profile_at=None,
                 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
                     for k in sorted(prof_frames):
-                        system.track_stereo(*frames[k], timestamp=k * 0.1, frame_id=k)
+                        _track(system, frames[k], k)
                     torch.cuda.synchronize()
                     wall_ms = (time.perf_counter() - t0) * 1e3
                 out["profile"] = _device_summary(prof, len(prof_frames), wall_ms,
                                                  f"System ({name}) profile", top=8)
                 i += len(prof_frames)
                 continue
-            system.track_stereo(*frames[i], timestamp=i * 0.1, frame_id=i)
+            _track(system, frames[i], i)
             if snapshot_at is not None and i == snapshot_at - 1:
                 out["snapshot"] = (system.camera_trajectory(), _keyframe_ids(system.map),
-                                   system.map.n_points())
+                                   system.map.n_points(),
+                                   objsys and convert.copy_object_state(objsys.all_tracks))
             i += 1
         system.wait_for_mapping()
         launches = patch.LAUNCHES
     finally:
         if timed_ba is not None:
-            local_ba.bundle_adjust = timed_ba.inner
+            timed_ba.remove()
     traj = system.camera_trajectory()
     summary = PROFILER.summary()["stages"]
     stats = system.shutdown()
     n = len(frames)
-    host_ms = [t * 1e3 for k, t in enumerate(system.frame_times) if k not in prof_frames]
+    # frames the profiler or the CPU mirror slowed are left out of the timing
+    untimed = prof_frames | {r["frame"] for r in (mirror.rows if mirror else [])}
+    host_ms = [t * 1e3 for k, t in enumerate(system.frame_times) if k not in untimed]
     lost = [e.frame_id for e in system.tracker.trajectory if e.lost]
     out.update(
         traj=traj, ate=_ate(scene, traj), path_m=SYSTEM_SPEED * n, launches=launches,
@@ -553,13 +687,35 @@ def run_system(name: str, scene, frames, device="cuda", profile_at=None,
         mapping_ms=summary.get("mapping", {}).get("median_ms", float("nan")),
         n_mapped=summary.get("mapping", {}).get("n", 0),
         ba_calls=system.local_mapper.ba_calls,
-        ba_device_ms=timed_ba.ms if timed_ba is not None else [],
+        ba_device_ms=timed_ba.ms["camera"] if timed_ba is not None else [],
         keyframes=stats["n_keyframes"], points=stats["n_points"],
         fast_frames=system._fast_frames, state=system.tracking_state, lost=lost,
         kf_ids=_keyframe_ids(system.map),
-        ba_last=timed_ba.last if timed_ba is not None else None,
+        ba_last=timed_ba.last.get("camera") if timed_ba is not None else None,
         mapping_errors=len(system.mapping_errors),
     )
+    # patch gathers: the camera frontend on every frame, the object
+    # frontend on every tracked frame with detections
+    obj_frames = 0
+    if objsys is not None:
+        tracked = {f for f, _, _ in traj}
+        obj_frames = sum(1 for k, fr in enumerate(frames)
+                         if k in tracked and any(d.track_id >= 0 for d in fr[2]))
+        out.update(
+            tracks=objsys.all_tracks, obj_ba_calls=objsys.ba_calls,
+            obj_ms=summary.get("objects", {}).get("median_ms", float("nan")),
+            obj_ba_device_ms=timed_ba.ms["object"] if timed_ba is not None else [],
+            obj_ba_last=timed_ba.last.get("object") if timed_ba is not None else None,
+            obj_err=float(np.median(_object_center_errors(scene, objsys.all_tracks))))
+        spans = {t.track_id: (min(t.poses_cf), max(t.poses_cf), len(t.poses_cf),
+                              len(t.keyframes), t.n_points(), t.dynamic)
+                 for t in objsys.all_tracks}
+        print(f"System ({name}) objects: tracks (first frame, last frame, poses, keyframes, "
+              f"points, dynamic) {spans}, median centre error {out['obj_err']:.4f} m (bound "
+              f"{MAX_OBJ_CENTER_ERR_M}), object BA calls {objsys.ba_calls}, object stage "
+              f"{out['obj_ms']:.3f} ms per frame (median), object bundle_adjust "
+              f"{[round(t, 3) for t in out['obj_ba_device_ms']]} ms per call (CUDA events)")
+    out["obj_frames"] = obj_frames
     print(f"System ({name}) on {device}, {n} frames: state {out['state']}, lost {lost}, "
           f"ATE {out['ate']:.4f} m over {out['path_m']:.1f} m, keyframes {out['keyframes']} "
           f"(ids {out['kf_ids']}), points {out['points']}, BA calls "
@@ -567,8 +723,8 @@ def run_system(name: str, scene, frames, device="cuda", profile_at=None,
           f"launches {launches} ({launches / n:g}/frame), mapping errors "
           f"{out['mapping_errors']}")
     print(f"System ({name}): median {out['track_ms']:.3f} ms per track_stereo (host clock, "
-          f"{len(host_ms)} frames outside the profile), mapping {out['mapping_ms']:.3f} ms "
-          f"per keyframe (median of {out['n_mapped']}), bundle_adjust "
+          f"{len(host_ms)} frames outside the profile and the mirror), mapping "
+          f"{out['mapping_ms']:.3f} ms per keyframe (median of {out['n_mapped']}), bundle_adjust "
           f"{[round(t, 3) for t in out['ba_device_ms']]} ms per call (CUDA events)")
     if not (out["state"] == TrackingState.OK and not lost and len(traj) == n):
         raise SystemExit(f"System ({name}): state {out['state']}, lost frames {lost}, "
@@ -578,9 +734,19 @@ def run_system(name: str, scene, frames, device="cuda", profile_at=None,
     if out["keyframes"] < 2 or out["ba_calls"] < 1:
         raise SystemExit(f"System ({name}): {out['keyframes']} keyframes, "
                          f"{out['ba_calls']} BA calls")
-    if device == "cuda" and launches != 4 * n:
-        raise SystemExit(f"System ({name}): expected 4 patch_gather launches per frame, "
-                         f"got {launches / n:g}")
+    if device == "cuda" and launches != 4 * (n + obj_frames):
+        raise SystemExit(f"System ({name}): expected 4 patch_gather launches per frame plus 4 "
+                         f"per frame with detections ({4 * (n + obj_frames)}), got {launches}")
+    if mirror is not None:
+        mirror.check(name)
+    if objsys is not None and gate_objects:
+        long_tracks = [t for t in objsys.all_tracks if len(t.poses_cf) >= 6]
+        if not out["obj_err"] < MAX_OBJ_CENTER_ERR_M:
+            raise SystemExit(f"System ({name}): median object centre error {out['obj_err']:.4f} m")
+        if not any(t.dynamic for t in long_tracks):
+            raise SystemExit(f"System ({name}): no long track flagged dynamic")
+        if objsys.ba_calls < 1:
+            raise SystemExit(f"System ({name}): no object BA call")
     return out
 
 
@@ -606,8 +772,9 @@ def check_bundle_adjust_on_cpu(prob, kw, got):
     depth_seen = (want.obs_inlier & cpu_prob.obs_stereo).any(dim=1) & cpu_prob.point_valid
     beyond = (excess > 0) & cpu_prob.point_valid
     point_gap = float((got.points - want.points)[depth_seen].abs().max())
-    res_got = local_ba._residuals_only(got.poses, got.points, cpu_prob, **kw)[0]
-    res_want = local_ba._residuals_only(want.poses, want.points, cpu_prob, **kw)[0]
+    one = local_ba.stack_problems([cpu_prob])     # the solver's problem axis
+    res_got = local_ba._residuals_only(got.poses[None], got.points[None], one, **kw)[0][0]
+    res_want = local_ba._residuals_only(want.poses[None], want.points[None], one, **kw)[0][0]
     rows = torch.stack([torch.ones_like(cpu_prob.obs_stereo), torch.ones_like(cpu_prob.obs_stereo),
                         cpu_prob.obs_stereo], dim=-1) & want.obs_inlier[..., None]
     px_gap = float(torch.where(rows, (res_got - res_want).abs(), 0.0).max())
@@ -646,6 +813,19 @@ def profile_bundle_adjust(prob, kw):
     _device_summary(prof, 1, wall_ms, "bundle_adjust profile (one call)", top=8)
 
 
+def check_ba_repeats(label: str, last) -> None:
+    """The last BA problem of a run solved twice more on the card with the
+    same solver: the outputs must be equal bit for bit (the pose-block and
+    coupling sums run in a fixed order; torch's default algorithms)."""
+    fn, prob, kw, _ = last
+    one, two = fn(prob, **kw), fn(prob, **kw)
+    torch.cuda.synchronize()
+    differ = {name: int((a != b).sum()) for name, a, b in zip(one._fields, one, two)}
+    print(f"bundle_adjust repeat on {label}: elements differing between two solves {differ}")
+    if any(differ.values()):
+        raise SystemExit(f"bundle_adjust does not repeat on {label}: {differ}")
+
+
 def run_systems(card: str, device="cuda") -> dict:
     """(a) host tracker + sync mapping, (b) the fast path, (c) async
     mapping on the first ASYNC_FRAMES frames; (a)'s first CPU_FRAMES frames
@@ -669,7 +849,7 @@ def run_systems(card: str, device="cuda") -> dict:
         raise SystemExit("System (c): async ATE out of bound")
 
     cpu = run_system("a on the CPU", scene, frames[:CPU_FRAMES], device="cpu")
-    traj_g, kf_g, pts_g = a["snapshot"]
+    traj_g, kf_g, pts_g, _ = a["snapshot"]
     tg = {f: np.linalg.inv(T)[:3, 3] for f, T, _ in traj_g}
     tc = {f: np.linalg.inv(T)[:3, 3] for f, T, _ in cpu["traj"]}
     gap = max(float(np.abs(tg[f] - tc[f]).max()) for f in tc) if set(tg) == set(tc) else np.inf
@@ -680,13 +860,129 @@ def run_systems(card: str, device="cuda") -> dict:
             and abs(pts_g - cpu["points"]) <= 0.02 * cpu["points"]):
         raise SystemExit("System (a): card and CPU path disagree")
     if device == "cuda":
-        check_bundle_adjust_on_cpu(*a["ba_last"])
-        profile_bundle_adjust(*a["ba_last"][:2])
+        check_bundle_adjust_on_cpu(*a["ba_last"][1:])
+        profile_bundle_adjust(*a["ba_last"][1:3])
+        check_ba_repeats("(a)'s last camera problem", a["ba_last"])
     print(f"System summary on {card}: median ms per track_stereo (a) {a['track_ms']:.3f}, "
           f"(b) {b['track_ms']:.3f}, (c) {c['track_ms']:.3f}; mapping ms per keyframe (a) "
           f"{a['mapping_ms']:.3f}, (c) {c['mapping_ms']:.3f}; bundle_adjust device ms "
           f"(a) {a['ba_device_ms']} over {a['ba_calls']} calls")
     return dict(a=a, b=b, c=c)
+
+
+# ---------------------------------------------------------------------------
+# the mode-4 System
+# ---------------------------------------------------------------------------
+
+def object_config(set_init_position_by_points: bool = False, **runtime) -> SystemConfig:
+    """SLOT mode 4 at full KITTI width: the default camera, ORB, map, BA and
+    ObjectConfig caps, with tests/test_object_slot.py:29-36's thresholds for
+    the small synthetic objects (10 / 8 / 8 / 10 features and points, 350
+    stereo features to initialise); the object origin at the offline centre
+    unless `set_init_position_by_points` (the default of ObjectConfig:
+    stereo centroid and fine_tune_with_bbox); loop closing off; the stage
+    timers on."""
+    return SystemConfig(
+        slot_mode=SLOTMode.OFFLINE,
+        objects=ObjectConfig(init_min_features=10, init_min_map_points=8,
+                             min_tracked_points=8, track_min_features=10,
+                             set_init_position_by_points=set_init_position_by_points),
+        tracking=TrackingConfig(min_init_stereo_features=350),
+        loop=LoopConfig(enabled=False),
+        runtime=RuntimeConfig(profile=True, **runtime))
+
+
+def render_object_frames(n: int):
+    """tests/test_object_slot.py's two-object scene at full width: (scene,
+    frames), each frame (left, right, detections, instance mask) with the
+    offline detections of offline_detection_rows. Fails unless both objects
+    are in view from frame 0 for at least MIN_OBJECT_SPAN frames."""
+    scene = synthetic.make_scene(n_frames=n, n_points=2500, n_objects=2, seed=31,
+                                 forward_speed=SYSTEM_SPEED)
+    renderer = synthetic.SyntheticRenderer(scene)
+    rows = synthetic.offline_detection_rows(scene)
+    t0 = time.perf_counter()
+    frames = []
+    for i in range(n):
+        left, right, inst = renderer.render(i)
+        fr = rows[(rows[:, 0] == i) & (rows[:, 1] >= 0)]
+        frames.append((left, right, [Detection.from_row24(r, mask_value=int(r[1]) + 1)
+                                     for r in fr], inst))
+    spans = {}
+    for o in scene.objects:
+        seen = rows[rows[:, 1] == o.track_id][:, 0].astype(int)
+        spans[o.track_id] = (int(seen.min()), int(seen.max()), len(seen)) if len(seen) else None
+    print(f"rendered {n} stereo pairs with instance masks for the mode-4 System in "
+          f"{time.perf_counter() - t0:.1f} s (host); objects in view (first frame, last frame, "
+          f"frames): {spans}")
+    if len(spans) != 2 or any(sp is None or sp[0] != 0 or sp[2] < MIN_OBJECT_SPAN
+                              for sp in spans.values()):
+        raise SystemExit(f"the mode-4 scene does not keep both objects in view: {spans}")
+    return scene, frames
+
+
+def compare_objects_with_cpu(d: dict, cpu: dict) -> None:
+    """(d)'s state after its first CPU_OBJECT_FRAMES frames against the same
+    frames on the port's CPU path, at tests/test_torch_object_system.py's
+    bounds: the same camera keyframes, camera translations within 5e-3 m;
+    the same tracks, (frame, track) poses and dynamic flags; object
+    translations within 1e-2 m, yaw within 1e-3 rad, point counts within
+    5 %."""
+    traj_g, kf_g, _, tracks_g = d["snapshot"]
+    tg = {f: np.linalg.inv(T)[:3, 3] for f, T, _ in traj_g}
+    tc = {f: np.linalg.inv(T)[:3, 3] for f, T, _ in cpu["traj"]}
+    cam_gap = max(float(np.abs(tg[f] - tc[f]).max()) for f in tc) if set(tg) == set(tc) else np.inf
+    ok = cam_gap <= MAX_SYSTEM_GAP_M and kf_g == cpu["kf_ids"]
+    obj_gap = yaw_gap = point_gap = 0.0
+    ids_g = [t.track_id for t in tracks_g]
+    ok &= ids_g == [t.track_id for t in cpu["tracks"]]
+    for g, c in zip(tracks_g, cpu["tracks"]):
+        ok &= sorted(g.poses_cf) == sorted(c.poses_cf) and g.dynamic == c.dynamic
+        for f in set(g.poses_cf) & set(c.poses_cf):
+            obj_gap = max(obj_gap, float(np.abs(g.poses_cf[f][:3, 3] - c.poses_cf[f][:3, 3]).max()))
+            yaw_gap = max(yaw_gap, abs(heading_y(g.poses_cf[f][:3, :3])
+                                       - heading_y(c.poses_cf[f][:3, :3])))
+        point_gap = max(point_gap, abs(g.n_points() - c.n_points()) / max(c.n_points(), 1))
+    print(f"System (d) card vs CPU over the first {CPU_OBJECT_FRAMES} frames: camera translation "
+          f"gap {cam_gap:.3e} m (bound {MAX_SYSTEM_GAP_M}), keyframe ids {kf_g} vs "
+          f"{cpu['kf_ids']}, tracks {ids_g}, object translation gap {obj_gap:.3e} m (bound "
+          f"{MAX_OBJ_GAP_M}), yaw gap {yaw_gap:.3e} rad (bound {MAX_YAW_GAP}), object point "
+          f"count gap {point_gap:.3%} (bound {MAX_OBJ_POINT_GAP:.0%}), dynamic flags "
+          f"{[t.dynamic for t in tracks_g]} vs {[t.dynamic for t in cpu['tracks']]}")
+    if not (ok and obj_gap <= MAX_OBJ_GAP_M and yaw_gap <= MAX_YAW_GAP
+            and point_gap <= MAX_OBJ_POINT_GAP):
+        raise SystemExit("System (d): card and CPU path disagree")
+
+
+def run_objects(card: str, device="cuda") -> dict:
+    """(d) host tracker + sync mapping, (e) fast path + async mapping with
+    fine_tune_with_bbox, on OBJECT_FRAMES frames; (d)'s first
+    CPU_OBJECT_FRAMES frames against the port's CPU path; (d)'s last object
+    BA problem solved twice. `device` "cpu" rehearses the phase without a
+    card (no profile, no launch gate, no repeat check)."""
+    scene, frames = render_object_frames(OBJECT_FRAMES)
+    d = run_system("d: mode 4, host tracker, sync mapping", scene, frames, device=device,
+                   profile_at=OBJECT_PROFILE_AT if device == "cuda" else None,
+                   snapshot_at=CPU_OBJECT_FRAMES, config_fn=object_config)
+    e = run_system("e: mode 4, fast path, async mapping", scene, frames, device=device,
+                   config_fn=object_config, set_init_position_by_points=True,
+                   device_resident_tracking=True, async_mapping=True,
+                   mirror_fast=MIRRORED_FAST_FRAMES)
+    if not e["fast_frames"] > OBJECT_FRAMES / 2:
+        raise SystemExit(f"System (e): only {e['fast_frames']} of {OBJECT_FRAMES} frames on "
+                         f"the fast path")
+    cpu = run_system("d on the CPU", scene, frames[:CPU_OBJECT_FRAMES], device="cpu",
+                     config_fn=object_config, gate_objects=False)
+    compare_objects_with_cpu(d, cpu)
+    if device == "cuda":
+        check_ba_repeats("(d)'s last object problem", d["obj_ba_last"])
+    print(f"mode-4 summary on {card}: median ms per track_stereo (d) {d['track_ms']:.3f}, "
+          f"(e) {e['track_ms']:.3f}; object stage ms per frame (d) {d['obj_ms']:.3f}, (e) "
+          f"{e['obj_ms']:.3f}; object bundle_adjust ms per call (d) {d['obj_ba_device_ms']}, "
+          f"(e) {e['obj_ba_device_ms']}; patch_gather launches (d) {d['launches']} over "
+          f"{d['frames']} frames ({d['obj_frames']} with detections), (e) {e['launches']} over "
+          f"{e['frames']} ({e['obj_frames']})")
+    return dict(d=d, e=e)
 
 
 def main() -> int:
@@ -732,6 +1028,7 @@ def main() -> int:
     compare_with_cpu(cfg, full)
 
     runs = run_systems(card)
+    runs.update(run_objects(card))
 
     left = kernel["sites"][0]
     line = {"kernels": [{

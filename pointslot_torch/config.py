@@ -3,7 +3,8 @@
 A copy of the fields of ``pointslot_tpu/config.py`` that the ported slices
 read, with the same defaults: KITTI tracking's 1242x375 stereo camera, the
 1000-feature, 8-level, scale-1.2 ORB budget, the tracking policy, the
-bundle-adjustment caps and chi2 gates, and the runtime knobs. A field joins
+object-SLOT knobs of mode 4, the bundle-adjustment caps and chi2 gates,
+and the runtime knobs. A field joins
 with the slice that reads it. ``slot_mode``, ``loop.enabled``,
 ``runtime.pipeline_stages`` and the distortion coefficients keep the
 reference's defaults and exist so that the System can raise for what the
@@ -67,6 +68,9 @@ class ORBConfig:
     scale_factor: float = 1.2
     n_levels: int = 8
     min_th_fast: int = 5
+    # rBRIEF sample-pair table: "learned" (the standard decorrelated ORB
+    # table) or "gaussian" (seeded random pairs, the object frontend's)
+    brief_pattern: str = "learned"
     # full-resolution stereo disparity re-fit for keypoints at this octave
     # or above (ops/stereo.fine_refine_from_patches)
     stereo_fine_min_level: int = 6
@@ -90,6 +94,47 @@ class TrackingConfig:
     max_nontracked_close: int = 70
     max_local_keyframes: int = 80
     reset_max_kfs_when_lost: int = 5
+
+
+@dataclass(frozen=True)
+class ObjectConfig:
+    """Object-SLOT knobs (reference Parameters.cc object block): the fields
+    the mode-4 object path reads."""
+
+    # BRIEF table of the object frontend, a second extractor beside the
+    # camera's (the reference runs its own ORB on object masks,
+    # src/Frame.cc:2623-2665); equal to ORBConfig.brief_pattern shares one
+    brief_pattern: str = "gaussian"
+    max_object_points: int = 512        # per-object landmark capacity
+    select_tracked_obj_id: int = -1     # -1 = every track
+    max_missing_dt: float = 0.5         # occlusion bridge time (s)
+    manual_point_max_distance: bool = False
+    in_obj_frame_point_max_distance: float = 3.0
+    init_min_features: int = 40         # EnInitDetObjORBFeaturesNum
+    init_min_map_points: int = 17       # EnInitMapObjectPointsNum
+    min_tracked_points: int = 15        # EnMinTrackedMOPsNUM
+    track_min_features: int = 30        # EnTrackObjectMinFeatureNum
+    set_init_position_by_points: bool = True
+    # dynamic/static discrimination (src/DetectionObject.cc:189,
+    # src/MapObject.cc:414-448)
+    dyn_mono_err_threshold: float = 1.0
+    dyn_stereo_err_threshold: float = 2.0
+    dyn_hysteresis_votes: int = 4
+    # object keyframe / BA policy (src/Optimizer.cc:47,
+    # src/ObjectLocalMapping.cpp:375); the solve's pose capacity is the next
+    # power of two of the live window, up to ba_window_pose_cap
+    ba_window_kf_ids: int = 120
+    ba_min_covisible_kfs: int = 8
+    ba_window_pose_cap: int = 128
+    # redundant object-keyframe culling (src/ObjectLocalMapping.cpp:269-323)
+    kf_culling: bool = True
+    kf_cull_redundancy: float = 0.9
+    # SE(3) constant-velocity priors between consecutive object keyframes
+    # in the BA window; 0 = off, the reference's live surface
+    ba_motion_prior_weight: float = 0.0
+    # not ported yet: the System raises for them (ROADMAP item 10b)
+    use_gms: bool = False
+    use_offline_flow: bool = False
 
 
 @dataclass(frozen=True)
@@ -134,6 +179,7 @@ class SystemConfig:
     camera: CameraConfig = field(default_factory=CameraConfig)
     orb: ORBConfig = field(default_factory=ORBConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
+    objects: ObjectConfig = field(default_factory=ObjectConfig)
     ba: BAConfig = field(default_factory=BAConfig)
     loop: LoopConfig = field(default_factory=LoopConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)

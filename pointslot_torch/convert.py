@@ -3,8 +3,9 @@
 The reference keeps descriptors as (N, 8) uint32; the port keeps the same
 bits in (N, 8) int32 words (torch has no uint32 shifts on the CPU). These
 helpers move map tables, object tables, poses and step results between the
-two layouts, so that "the same inputs" means the same bits, and bring
-device results to the host in one transfer.
+two layouts, so that "the same inputs" means the same bits, bring device
+results to the host in one transfer, and build the port's map and object
+state from the reference's numpy tables.
 """
 
 from __future__ import annotations
@@ -96,3 +97,49 @@ def map_state_from_arrays(other):
         setattr(m, f.name, value.copy() if isinstance(value, np.ndarray) else value)
     m._next_uid = other._next_uid
     return m
+
+
+def copy_object_state(value):
+    """A deep copy of object-layer host state (arrays, dicts, lists, and
+    records: a Detection, an ObjectKeyFrameRec, an ObjectTrack) whose
+    records become the port's classes of the same name."""
+    import dataclasses
+
+    from pointslot_torch.slam import objects
+
+    if isinstance(value, np.ndarray):
+        return value.copy()
+    if isinstance(value, dict):
+        return {k: copy_object_state(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(copy_object_state(v) for v in value)
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        cls = getattr(objects, type(value).__name__)
+        out = cls.__new__(cls)   # no __post_init__: it would reset the tables
+        for f in dataclasses.fields(cls):
+            setattr(out, f.name, copy_object_state(getattr(value, f.name)))
+        return out
+    return value
+
+
+def object_tracks_from_arrays(tracks) -> list:
+    """The port's ObjectTracks with every field of `tracks` (the reference's
+    ObjectTracks, or any objects with the same fields) copied: point
+    tables, keyframes, per-frame states, velocity, votes, epoch."""
+    return [copy_object_state(t) for t in tracks]
+
+
+def object_system_from_arrays(other, config, device="cuda"):
+    """The port's ObjectSystem (without a System: own frontend, synchronous
+    object mapping) holding a copy of `other`'s tracks, with the same
+    track objects shared between its `tracks` dict and its `all_tracks`
+    list as in `other`, and its pending-keyframe counts and BA count."""
+    from pointslot_torch.slam.object_system import ObjectSystem
+
+    o = ObjectSystem(config, None, device=device)
+    copies = dict(zip(map(id, other.all_tracks), object_tracks_from_arrays(other.all_tracks)))
+    o.all_tracks = [copies[id(t)] for t in other.all_tracks]
+    o.tracks = {k: copies[id(t)] for k, t in other.tracks.items()}
+    o._pending_okfs = dict(other._pending_okfs)
+    o.ba_calls = other.ba_calls
+    return o

@@ -1,17 +1,24 @@
 """Stereo frame frontend: ORB on the left and right images + stereo matching.
 
-Port of ``pointslot_tpu/ops/frontend.py::StereoFrontend`` (the ungated
-single-pair path: ``_image_stage``, ``_frontend``, ``_stereo_from_patches``
-and its ``_stereo_pre`` / ``_stereo_sad`` / ``_stereo_fine`` phases).
-The patch gather runs four times per pair: left keypoints, right keypoints,
-right SAD windows and the level-0 fine windows. On the card it reads the
-pyramid levels in place and no padded canvas is built.
+Port of ``pointslot_tpu/ops/frontend.py::StereoFrontend`` (the
+single-pair path, gated and ungated: ``_image_stage``, ``_frontend``,
+``_stereo_from_patches`` and its ``_stereo_pre`` / ``_stereo_sad`` /
+``_stereo_fine`` phases) and ``dilate_mask_left``. The patch gather runs
+four times per pair: left keypoints, right keypoints, right SAD windows and
+the level-0 fine windows. On the card it reads the pyramid levels in place
+and no padded canvas is built.
+
+A gate (an allowed-region mask per image) multiplies each level's FAST
+score map by the mask resized as ``jax.image.resize(..., "nearest")`` does.
+That resize matches neither torch's ``nearest`` nor ``nearest-exact``; its
+index map is rebuilt here in numpy from jax's formula (``nearest_index``).
 """
 
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from pointslot_torch.config import ORBConfig
@@ -35,8 +42,36 @@ class StereoFrame(NamedTuple):
     depth: torch.Tensor     # (N,) float32 (-1 = no stereo)
 
 
+def nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """Source index of each of `n_out` samples along an axis of `n_in`, as
+    jax.image.resize's "nearest" takes them: floor((i + 0.5) * n_in / n_out)
+    in float32, where XLA folds the two constants into one factor,
+    n_in * (1 / n_out) (a float32 factor of 1.19999993 for 1242 -> 1035,
+    not 1.2); an axis whose size is kept is not resampled."""
+    if n_in == n_out:
+        return np.arange(n_out, dtype=np.int64)
+    factor = np.float32(n_in) * (np.float32(1.0) / np.float32(n_out))
+    offsets = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * factor
+    return np.floor(offsets).astype(np.int64)
+
+
+def dilate_mask_left(mask: np.ndarray, max_disparity: int = 128) -> np.ndarray:
+    """Union of the mask shifted left by 0..max_disparity px: where an
+    object can appear in the RIGHT stereo image (log-step doubling, as the
+    reference)."""
+    m = np.asarray(mask) != 0
+    s = 1
+    while s < max_disparity:
+        shifted = np.zeros_like(m)
+        shifted[:, :-s] = m[:, s:]
+        m = m | shifted
+        s *= 2
+    return m
+
+
 class StereoFrontend:
-    """(left, right) -> StereoFrame at fixed geometry on one device."""
+    """(left, right[, gate, gate_right]) -> StereoFrame at fixed geometry on
+    one device."""
 
     def __init__(self, height: int, width: int, fx: float, bf: float,
                  config: Optional[ORBConfig] = None, device="cuda"):
@@ -50,13 +85,36 @@ class StereoFrontend:
             [cfg.scale_factor ** i for i in range(cfg.n_levels)],
             dtype=torch.float32).to(self.device)
         self._lshapes = torch.tensor(self.extractor.shapes, dtype=torch.int32).to(self.device)
+        # the gate's nearest-resize index maps, (rows, cols) per level
+        self._gate_index = [
+            tuple(torch.from_numpy(nearest_index(n, m)).to(self.device)
+                  for n, m in zip((height, width), shape))
+            for shape in self.extractor.shapes]
 
-    def __call__(self, left, right) -> StereoFrame:
-        return self.run(to_tensor(left, None, self.device), to_tensor(right, None, self.device))
+    def __call__(self, left, right, gate=None, gate_right=None) -> StereoFrame:
+        """gate / gate_right: (H, W) boolean allowed-region masks for the
+        left and right images. With `gate` alone the right image is
+        ungated (the background frontend); the object frontend passes a
+        disparity-dilated `gate_right` as well."""
+        d = self.device
+        return self.run(to_tensor(left, None, d), to_tensor(right, None, d),
+                        None if gate is None else to_tensor(gate, torch.bool, d),
+                        None if gate_right is None else to_tensor(gate_right, torch.bool, d))
 
-    def run(self, left: torch.Tensor, right: torch.Tensor) -> StereoFrame:
-        """The frontend on device tensors (H, W), any real dtype."""
-        return StereoFrame(*self._frontend(left, right))
+    def run(self, left: torch.Tensor, right: torch.Tensor,
+            gate: Optional[torch.Tensor] = None,
+            gate_right: Optional[torch.Tensor] = None) -> StereoFrame:
+        """The frontend on device tensors (H, W), any real dtype; gates are
+        (H, W) bool tensors on the same device."""
+        return StereoFrame(*self._frontend(left, right, gate, gate_right))
+
+    def _gate_scores(self, scores: List[torch.Tensor], gate, gate_right):
+        """Each level's (2, h, w) scores times the nearest-resized masks."""
+        ones = torch.ones(self.extractor.shapes[0], dtype=torch.float32, device=self.device)
+        g_both = torch.stack([ones if gate is None else gate.to(torch.float32),
+                              ones if gate_right is None else gate_right.to(torch.float32)])
+        return [s * g_both.index_select(1, rows).index_select(2, cols)
+                for s, (rows, cols) in zip(scores, self._gate_index)]
 
     # ------------------------------------------------------------------
     def _image_stage(self, imgs: torch.Tensor):
@@ -65,10 +123,12 @@ class StereoFrontend:
         levels = ext.pyramid(imgs.to(torch.float32))
         return levels, ext.scores(levels)
 
-    def _frontend(self, left: torch.Tensor, right: torch.Tensor):
+    def _frontend(self, left: torch.Tensor, right: torch.Tensor, gate=None, gate_right=None):
         ext = self.extractor
         both = torch.stack([left.to(torch.float32), right.to(torch.float32)])
         levels, scores = self._image_stage(both)
+        if gate is not None or gate_right is not None:
+            scores = self._gate_scores(scores, gate, gate_right)
         # selection runs on both images at once; the patch gather runs per
         # image (one launch each), as the reference's single-pair path does
         xyl, xy, resp, lvl, valid = ext.detect(scores)

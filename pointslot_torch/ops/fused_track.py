@@ -1,8 +1,10 @@
 """The mode-4 per-frame hot path: camera tracking step + batched object phase.
 
-Port of ``pointslot_tpu/ops/fused_track.py`` (``FusedTrackStep`` ungated,
-``FusedObjectPhase``, ``FusedFrameStep.__call__``). The camera half runs
-the stereo frontend, projection matching at radius 7 against the local
+Port of ``pointslot_tpu/ops/fused_track.py`` (``FusedTrackStep``, gated
+and ungated, ``FusedObjectPhase``, ``FusedFrameStep.__call__``). The camera
+half runs the stereo frontend (under a gate: detection restricted to the
+mask, then each feature checked against it at level-0 coordinates),
+projection matching at radius 7 against the local
 map, a pose LM, matching at radius 4 at the refined pose, a second LM and
 the constant-velocity update. The object half matches every object's point
 table and solves all object poses in one batched LM.
@@ -65,6 +67,15 @@ class _Camera:
                     inv_sigma2=inv_sigma2.expand(B, -1), valid=(pf >= 0) & feat_valid)
 
 
+def gate_at_keypoints(gate: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """The mask's value at each keypoint's rounded level-0 pixel: the exact
+    per-feature check that coarse-level gating leaks a few boundary
+    features past (the reference's AssignFeatures, src/Frame.cc:810-844)."""
+    xi = torch.clamp(torch.round(xy[:, 0]).long(), 0, gate.shape[1] - 1)
+    yi = torch.clamp(torch.round(xy[:, 1]).long(), 0, gate.shape[0] - 1)
+    return gate[yi, xi]
+
+
 def _bind(pos: torch.Tensor, pf: torch.Tensor) -> torch.Tensor:
     """pos (B, M, 3), pf (B, N) -> (B, N, 3) rows, clamped for unbound."""
     rows = torch.clamp(pf, 0, pos.shape[1] - 1).long()
@@ -90,13 +101,16 @@ class FusedTrackStep:
         self._c = _Camera(config, self.device)
 
     def __call__(self, left, right, T_prev, velocity,
-                 map_pos, map_desc, map_level, map_valid) -> FusedStepResult:
+                 map_pos, map_desc, map_level, map_valid, gate=None) -> FusedStepResult:
+        """gate: optional (H, W) bool allowed-region mask (the background of
+        mode 4)."""
         d = self.device
         return self.run(
             to_tensor(left, None, d), to_tensor(right, None, d),
             to_tensor(T_prev, torch.float32, d), to_tensor(velocity, torch.float32, d),
             to_tensor(map_pos, torch.float32, d), to_tensor(map_desc, torch.int32, d),
             to_tensor(map_level, torch.int32, d), to_tensor(map_valid, torch.bool, d),
+            None if gate is None else to_tensor(gate, torch.bool, d),
         )
 
     def _match_stage(self, sf: StereoFrame, T, map_pos, map_desc, map_level,
@@ -116,9 +130,11 @@ class FusedTrackStep:
         return r.T[0], r.inliers[0], r.n_inliers[0]
 
     def run(self, left, right, T_prev, velocity,
-            map_pos, map_desc, map_level, map_valid) -> FusedStepResult:
+            map_pos, map_desc, map_level, map_valid, gate=None) -> FusedStepResult:
         """The step on device tensors."""
-        frame = self.frontend.run(left, right)
+        frame = self.frontend.run(left, right, gate)
+        if gate is not None:
+            frame = frame._replace(valid=frame.valid & gate_at_keypoints(gate, frame.xy))
         T_pred = velocity @ T_prev
         # stage 1: motion-model window, radius 7
         pf1 = self._match_stage(frame, T_pred, map_pos, map_desc, map_level,

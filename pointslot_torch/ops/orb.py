@@ -1,8 +1,9 @@
 """ORB feature extraction: pyramid -> FAST -> NMS -> per-cell select ->
 patch gather -> intensity-centroid angle -> 7x7 blur -> steered BRIEF.
 
-Port of ``pointslot_tpu/ops/orb.py`` (the ungated single-image path).
-Hazards kept in mind:
+Port of ``pointslot_tpu/ops/orb.py`` (the ungated single-image path, with
+the learned or the gaussian BRIEF table; a gate is applied to the score
+maps by the frontend). Hazards kept in mind:
 
 - ``lax.top_k`` breaks ties toward the lower index and ``torch.topk`` does
   not; the zero-padded cells always tie, so selection is a stable
@@ -49,6 +50,23 @@ class FeatureSet(NamedTuple):
     level: torch.Tensor     # (N,) int32 pyramid level
     desc: torch.Tensor      # (N, 8) int32 words of the 256-bit descriptor
     valid: torch.Tensor     # (N,) bool
+
+
+def brief_pattern(kind: str = "learned") -> np.ndarray:
+    """(256, 4) int32 sample-pair offsets (xa, ya, xb, yb), radius <= 13:
+    the learned ORB table, or isotropic-Gaussian pairs (the original BRIEF
+    construction, the object frontend's default) drawn from numpy's
+    generator with seed 1234, exactly as the reference draws them."""
+    if kind == "learned":
+        return LEARNED_PATTERN
+    if kind != "gaussian":
+        raise ValueError(f"unknown BRIEF pattern {kind!r}")
+    rng = np.random.default_rng(1234)
+    pts = rng.normal(0.0, 31.0 / 5.0, size=(PATTERN_BITS * 2, 2))
+    r = np.linalg.norm(pts, axis=1)
+    scale = np.minimum(1.0, 13.0 / np.maximum(r, 1e-6))
+    pts = np.round(pts * scale[:, None]).astype(np.int32)
+    return np.concatenate([pts[:PATTERN_BITS], pts[PATTERN_BITS:]], axis=1)
 
 
 def level_budgets(n_features: int, n_levels: int, scale_factor: float) -> List[int]:
@@ -109,7 +127,7 @@ class ORBExtractor:
         self.shapes = pyr_ops.level_shapes(height, width, cfg.n_levels, cfg.scale_factor)
         self.budgets = level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor)
         self.capacity = sum(self.budgets)
-        pat = LEARNED_PATTERN
+        pat = brief_pattern(cfg.brief_pattern)
         # interleave a|b sample points: one (512, 2) table
         self._pat = torch.from_numpy(
             np.concatenate([pat[:, 0:2], pat[:, 2:4]], axis=0).astype(np.float32)).to(dev)

@@ -95,7 +95,7 @@ class DeviceTrackingPath:
             and tracker.last_frame.T_cw is not None
         )
 
-    def track(self, tracker, left, right, frame_id: int):
+    def track(self, tracker, left, right, frame_id: int, gate=None):
         """One fused-step frame. Returns the (light) FrameRecord on
         success, or None to signal the caller to run the host tracker
         (full-feature fallback frame available via `fallback_frame`)."""
@@ -105,7 +105,7 @@ class DeviceTrackingPath:
                   else convert.to_tensor(tracker.last_frame.T_cw, torch.float32, d))
         vel = (self._vel_dev if self._vel_dev is not None
                else convert.to_tensor(tracker.velocity, torch.float32, d))
-        res = self.step(left, right, T_prev, vel, *self._tables)
+        res = self.step(left, right, T_prev, vel, *self._tables, gate=gate)
         self._last_res = res
         # ONE device->host transfer for everything the light frame needs
         pf, level, depth, valid, T_cw, velocity, n_inl = convert.host(

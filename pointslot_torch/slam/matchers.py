@@ -4,12 +4,14 @@ Port of ``pointslot_tpu/slam/matchers.py``:
 
 - ``project_and_match`` with the object vmap written out: the map side
   carries a leading batch axis B (B = 1 for the camera's local map, B = O
-  for the object tables), the frame's features are shared.
+  for the object tables); the frame's features are shared, or carry the
+  same axis B (each object's own features, the object tracker's case).
   ``jax.ops.segment_min`` becomes ``scatter_reduce`` with ``"amin"``; the
   ``.at[].set(mode="drop")`` write becomes a write into an N + 1 buffer
   whose last slot is then sliced off.
 - ``brute_match``: mutual-best matching with the Lowe ratio and the
-  rotation histogram. ``torch.argmin`` breaks ties to the first index as
+  rotation histogram, on one table pair or on a leading batch axis (the
+  reference's ``jax.vmap(brute_match)`` over objects). ``torch.argmin`` breaks ties to the first index as
   ``jnp.argmin`` does; ``lax.top_k``'s third-largest bin is a sort of the
   30 bins.
 """
@@ -39,10 +41,10 @@ def project_and_match(
     pt_desc: torch.Tensor,      # (B, M, 8) int32 words
     pt_valid: torch.Tensor,     # (B, M) bool
     T_cw: torch.Tensor,         # (B, 4, 4)
-    feat_xy: torch.Tensor,      # (N, 2)
-    feat_level: torch.Tensor,   # (N,) int32
-    feat_desc: torch.Tensor,    # (N, 8) int32 words
-    feat_valid: torch.Tensor,   # (N,) bool
+    feat_xy: torch.Tensor,      # (N, 2) or (B, N, 2)
+    feat_level: torch.Tensor,   # (N,) or (B, N) int32
+    feat_desc: torch.Tensor,    # (N, 8) or (B, N, 8) int32 words
+    feat_valid: torch.Tensor,   # (N,) or (B, N) bool
     radius: float,              # search radius in px at level 0
     scale_factors: torch.Tensor,  # (n_levels,)
     pred_level: torch.Tensor,   # (B, M) int32 predicted octave per point
@@ -52,7 +54,10 @@ def project_and_match(
     level_window: int = 1,
 ) -> ProjMatchResult:
     B, M = pts_w.shape[:2]
-    N = feat_xy.shape[0]
+    if feat_xy.dim() == 2:
+        feat_xy, feat_level, feat_desc, feat_valid = (
+            x[None] for x in (feat_xy, feat_level, feat_desc, feat_valid))
+    N = feat_xy.shape[1]
     R, t = T_cw[:, :3, :3], T_cw[:, :3, 3]
     pc = torch.matmul(pts_w, R.transpose(-1, -2)) + t[:, None, :]
     z = pc[..., 2]
@@ -65,11 +70,11 @@ def project_and_match(
     n_lv = scale_factors.shape[0]
     r_px = radius * scale_factors[torch.clamp(pred_level, 0, n_lv - 1).long()]
 
-    du = u[..., None] - feat_xy[:, 0]
-    dv = v[..., None] - feat_xy[:, 1]
+    du = u[..., None] - feat_xy[:, None, :, 0]
+    dv = v[..., None] - feat_xy[:, None, :, 1]
     in_window = (torch.abs(du) <= r_px[..., None]) & (torch.abs(dv) <= r_px[..., None])
-    lvl_ok = torch.abs(feat_level - pred_level[..., None]) <= level_window
-    mask = visible[..., None] & feat_valid & in_window & lvl_ok       # (B, M, N)
+    lvl_ok = torch.abs(feat_level[:, None, :] - pred_level[..., None]) <= level_window
+    mask = visible[..., None] & feat_valid[:, None, :] & in_window & lvl_ok   # (B, M, N)
 
     dist = hamming_table_popcount(pt_desc, feat_desc)                 # (B, M, N)
     dist = torch.where(mask, dist, torch.full_like(dist, _BIG))
@@ -100,8 +105,8 @@ def project_and_match(
 
 
 class BruteMatchResult(NamedTuple):
-    idx_b_for_a: torch.Tensor   # (NA,) int32 match in B or -1
-    n_matches: torch.Tensor     # () int32
+    idx_b_for_a: torch.Tensor   # (NA,) or (B, NA) int32 match in B or -1
+    n_matches: torch.Tensor     # () or (B,) int32
 
 
 def brute_match(
@@ -113,34 +118,43 @@ def brute_match(
 ) -> BruteMatchResult:
     """Mutual-best descriptor matching with Lowe ratio and rotation-histogram
     filtering (keep the 3 dominant relative-orientation bins). Descriptors
-    are (N, 8) int32 words."""
-    NA = desc_a.shape[0]
-    dist = hamming_table_popcount(desc_a, desc_b)
-    dist = torch.where(valid_a[:, None] & valid_b[None, :], dist,
+    are (NA, 8) / (NB, 8) int32 words; every input may carry a leading batch
+    axis B, one independent match per lane."""
+    single = desc_a.dim() == 2
+    if single:
+        desc_a, angle_a, valid_a, desc_b, angle_b, valid_b = (
+            x[None] for x in (desc_a, angle_a, valid_a, desc_b, angle_b, valid_b))
+    NA = desc_a.shape[1]
+    dist = hamming_table_popcount(desc_a, desc_b)                      # (B, NA, NB)
+    dist = torch.where(valid_a[:, :, None] & valid_b[:, None, :], dist,
                        torch.full_like(dist, _BIG))
 
     # two smallest per row: the second from a copy with the best masked
-    best = torch.argmin(dist, dim=1)
-    d1 = dist.gather(1, best[:, None])[:, 0]
-    d2 = dist.scatter(1, best[:, None], _BIG).amin(dim=1)
+    best = torch.argmin(dist, dim=2)
+    d1 = dist.gather(2, best[..., None])[..., 0]
+    d2 = dist.scatter(2, best[..., None], _BIG).amin(dim=2)
     ok = (d1 <= th_desc) & (d1.to(torch.float32) < nn_ratio * d2.to(torch.float32))
 
     # mutual check: the best row of the column must be this row
     rows = torch.arange(NA, device=dist.device)
-    col_best = torch.argmin(dist, dim=0)
-    ok = ok & (col_best[best] == rows)
+    col_best = torch.argmin(dist, dim=1)                               # (B, NB)
+    ok = ok & (col_best.gather(1, best) == rows)
 
     if check_rotation:
         two_pi = 2.0 * torch.pi
-        rot = torch.remainder(angle_a - angle_b[best], two_pi)
+        rot = torch.remainder(angle_a - angle_b.gather(1, best), two_pi)
         bins = torch.clamp((rot * (HISTO_LENGTH / two_pi)).to(torch.int32),
                            0, HISTO_LENGTH - 1).long()
-        hist = torch.zeros(HISTO_LENGTH + 1, dtype=torch.int32, device=dist.device)
-        hist = hist.index_add(0, torch.where(ok, bins, torch.full_like(bins, HISTO_LENGTH)),
-                              torch.ones_like(bins, dtype=torch.int32))[:HISTO_LENGTH]
-        third = torch.sort(hist, descending=True).values[2]
+        hist = torch.zeros((bins.shape[0], HISTO_LENGTH + 1), dtype=torch.int32,
+                           device=dist.device)
+        hist = hist.scatter_add(1, torch.where(ok, bins, torch.full_like(bins, HISTO_LENGTH)),
+                                torch.ones_like(bins, dtype=torch.int32))[:, :HISTO_LENGTH]
+        third = torch.sort(hist, dim=1, descending=True).values[:, 2:3]
         keep_bin = hist >= torch.clamp(third, min=1)
-        ok = ok & keep_bin[bins]
+        ok = ok & keep_bin.gather(1, bins)
 
     out = torch.where(ok, best.to(torch.int32), torch.full_like(best, -1, dtype=torch.int32))
-    return BruteMatchResult(idx_b_for_a=out, n_matches=ok.sum(dtype=torch.int32))
+    n = ok.sum(dim=1, dtype=torch.int32)
+    if single:
+        return BruteMatchResult(idx_b_for_a=out[0], n_matches=n[0])
+    return BruteMatchResult(idx_b_for_a=out, n_matches=n)

@@ -3,7 +3,10 @@
 Port of ``pointslot_tpu/solvers/pose_opt.py::pose_optimize`` with the
 object vmap written out as a leading batch axis B (B = 1 for the camera,
 B = O for the objects). 4 stages of up to 10 LM iterations, Huber on the
-first two, chi2 re-gating between stages.
+first two, chi2 re-gating between stages; an optional per-lane translation
+prior (the objects' detection anchor, the reference's
+EdgeTransConstraintFromDetction; ``pose_optimize_batched(use_trans_prior=
+True)`` in the JAX package).
 
 The reference's early-exit ``lax.while_loop`` becomes exactly
 ``iters_per_stage`` iterations in which a lane freezes its whole carry once
@@ -15,7 +18,7 @@ skips the error check that would sync with the host.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +53,8 @@ def pose_optimize(
     iters_per_stage: int = 10,
     chi2_mono: float = CHI2_MONO,
     chi2_stereo: float = CHI2_STEREO,
+    trans_prior: Optional[torch.Tensor] = None,   # (B, 3) prior on t of T
+    trans_prior_weight: float = 50.0,
 ) -> PoseOptResult:
     # Huber thresholds as float32 square roots, as the reference takes them
     delta_th = torch.where(is_stereo, float(np.sqrt(np.float32(chi2_stereo))),
@@ -102,6 +107,14 @@ def pose_optimize(
              + torch.matmul(A2, A2.transpose(-1, -2)))     # (B, 6, 6)
         b = (torch.matmul(A0, r0[..., None]) + torch.matmul(A1, r1[..., None])
              + torch.matmul(A2, r2[..., None]))[..., 0]    # (B, 6)
+        if trans_prior is not None and trans_prior_weight > 0.0:
+            # residual t(T) - prior; d t / d xi = [I | -hat(t)]
+            rp = t - trans_prior
+            Jp = torch.cat([eye6[:3, :3].expand(t.shape[0], 3, 3), -se3.hat(t)], dim=-1)
+            Jp_T = Jp.transpose(-1, -2)
+            H = H + trans_prior_weight * (Jp_T @ Jp)
+            b = b + trans_prior_weight * (Jp_T @ rp[..., None])[..., 0]
+            cost = cost + trans_prior_weight * torch.sum(rp * rp, dim=-1)
         return cost, H, b, chi2, behind
 
     def lm_stage(T, active, use_huber: bool, boundary):

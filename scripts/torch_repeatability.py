@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""Does pointslot_torch's mode-0 System give the same result twice on the
-card, and if not, which device stage first answers the same inputs with
-different outputs?
+"""Do pointslot_torch's mode-0 and mode-4 Systems give the same result
+twice on the card, and if not, which device stage first answers the same
+inputs with different outputs?
 
-    python3 scripts/torch_repeatability.py [--frames 40]
+    python3 scripts/torch_repeatability.py [--frames 40] [--object-frames 20]
 
 Run from the repository root on a CUDA machine. It runs itself twice in
 subprocesses: once with torch's default algorithms, once with
 torch.use_deterministic_algorithms(True, warn_only=True) and
 CUBLAS_WORKSPACE_CONFIG=:4096:8. Each drives chip_smoke.py's System runs
-(a) host tracker + sync mapping and (b) device-resident fast path twice
-on the same frames (chip_smoke's scene at full KITTI width), records a
-digest of the inputs and outputs of every call to the device stages
-(frontend, fused step, project_and_match, brute_match, pose_optimize,
-triangulate, bundle_adjust), and prints, for each pair of runs, the
-keyframe ids, the largest translation gap, and the first call whose inputs
-agree and whose outputs do not. In the deterministic run it also lists
-the ops that torch reports as having no deterministic implementation.
+(a) host tracker + sync mapping and (b) device-resident fast path, and
+its mode-4 run (d) host tracker + sync mapping, twice each on the same
+frames (chip_smoke's scenes at full KITTI width), records a digest of the
+inputs and outputs of every call to the device stages (frontend, fused
+step, project_and_match, brute_match, pose_optimize, triangulate,
+fine_tune_with_bbox, bundle_adjust, bundle_adjust_batched), and prints,
+for each pair of runs, the keyframe ids, the largest camera (and object)
+translation gap, and the first call whose inputs agree and whose outputs
+do not. In the deterministic run it also lists the ops that torch reports
+as having no deterministic implementation.
 """
 
 import argparse
@@ -66,14 +68,15 @@ class Recorder:
         from pointslot_torch.geometry import triangulation
         from pointslot_torch.ops.frontend import StereoFrontend
         from pointslot_torch.ops.fused_track import FusedTrackStep
-        from pointslot_torch.slam import matchers
+        from pointslot_torch.slam import matchers, object_system
         from pointslot_torch.solvers import local_ba, pose_opt
 
         self.calls = []
         targets = [(StereoFrontend, "__call__", True), (FusedTrackStep, "__call__", True),
                    (matchers, "project_and_match", False), (matchers, "brute_match", False),
                    (pose_opt, "pose_optimize", False), (triangulation, "triangulate", False),
-                   (local_ba, "bundle_adjust", False)]
+                   (object_system, "fine_tune_with_bbox", False),
+                   (local_ba, "bundle_adjust", False), (local_ba, "bundle_adjust_batched", False)]
         for owner, attr, method in targets:
             setattr(owner, attr, self._wrap(getattr(owner, attr), f"{owner.__name__}.{attr}",
                                             method))
@@ -98,29 +101,37 @@ def run_once(args) -> None:
     from pointslot_torch.slam.system import System
 
     rec = Recorder()
-    scene, frames = chip_smoke.render_system_frames(args.frames)
+    camera = chip_smoke.render_system_frames(args.frames)
+    objects = chip_smoke.render_object_frames(args.object_frames)
     flagged = set()
     runs = {}
-    for label, runtime in (("a", {}), ("b", dict(device_resident_tracking=True))):
+    for label, (scene, frames), config in (
+            ("a", camera, chip_smoke.system_config()),
+            ("b", camera, chip_smoke.system_config(device_resident_tracking=True)),
+            ("d", objects, chip_smoke.object_config())):
         for rep in (1, 2):
             rec.calls = []
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
-                system = System(chip_smoke.system_config(**runtime), device="cuda")
-                for i, (left, right) in enumerate(frames):
-                    system.track_stereo(left, right, timestamp=i * 0.1, frame_id=i)
+                system = System(config, device="cuda")
+                for i, frame in enumerate(frames):
+                    chip_smoke._track(system, frame, i)
                 system.wait_for_mapping()
             flagged |= {str(w.message).split(" does not have a deterministic")[0]
                         for w in caught if "deterministic" in str(w.message)}
             traj = {f: np.linalg.inv(T)[:3, 3] for f, T, _ in system.camera_trajectory()}
-            runs[label, rep] = dict(calls=rec.calls, traj=traj,
+            obj = {(t.track_id, f): T[:3, 3] for t in getattr(
+                system._object_system, "all_tracks", ()) for f, T in t.poses_cf.items()}
+            runs[label, rep] = dict(calls=rec.calls, traj=traj, obj=obj,
                                     kf_ids=chip_smoke._keyframe_ids(system.map),
                                     ate=chip_smoke._ate(scene, system.camera_trajectory()))
             system.shutdown()
-    for label in ("a", "b"):
+    for label in ("a", "b", "d"):
         r1, r2 = runs[label, 1], runs[label, 2]
         gap = max(float(np.abs(r1["traj"][f] - r2["traj"][f]).max())
                   for f in r1["traj"] if f in r2["traj"])
+        obj_gap = max((float(np.abs(r1["obj"][k] - r2["obj"][k]).max())
+                       for k in r1["obj"] if k in r2["obj"]), default=None)
         first = None
         for k, (c1, c2) in enumerate(zip(r1["calls"], r2["calls"])):
             if c1 != c2:
@@ -131,6 +142,8 @@ def run_once(args) -> None:
             mode="deterministic" if args.deterministic else "default", run=label,
             calls=[len(r1["calls"]), len(r2["calls"])], kf_ids=[r1["kf_ids"], r2["kf_ids"]],
             ate=[r1["ate"], r2["ate"]], max_translation_gap_m=gap,
+            max_object_translation_gap_m=obj_gap,
+            same_object_poses=sorted(r1["obj"]) == sorted(r2["obj"]),
             first_divergence=first,
             stages_nondeterministic=sorted({c1[0] for c1, c2 in zip(r1["calls"], r2["calls"])
                                             if c1[:2] == c2[:2] and c1[2] != c2[2]}),
@@ -142,6 +155,7 @@ def run_once(args) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--frames", type=int, default=40)
+    parser.add_argument("--object-frames", type=int, default=20)
     parser.add_argument("--deterministic", action="store_true")
     parser.add_argument("--child", action="store_true")
     args = parser.parse_args()
@@ -151,7 +165,8 @@ def main() -> int:
     rc = 0
     for deterministic in (False, True):
         env = dict(os.environ)
-        cmd = [sys.executable, __file__, "--child", "--frames", str(args.frames)]
+        cmd = [sys.executable, __file__, "--child", "--frames", str(args.frames),
+               "--object-frames", str(args.object_frames)]
         if deterministic:
             env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
             cmd.append("--deterministic")

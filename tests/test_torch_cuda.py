@@ -151,3 +151,92 @@ def test_step_has_no_host_sync():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+def test_gated_step_has_no_host_sync():
+    """The mode-4 camera step, under a background gate, makes no
+    synchronising call either: the gate's resize index maps live on the
+    card and the per-keypoint check gathers there."""
+    _need_card()
+    cam = CameraConfig(width=512, height=256, fx=300.0, fy=300.0, cx=256.0, cy=128.0, bf=60.0)
+    full = FusedFrameStep(SystemConfig().replace(camera=cam), device="cuda")
+    rng = np.random.default_rng(6)
+    left = rng.integers(0, 255, (256, 512), dtype=np.uint8)
+    d = full.device
+    args = [convert.to_tensor(x, None, d) for x in (left, np.roll(left, -4, axis=1))]
+    eye = torch.eye(4, device=d)
+    M = 256
+    tables = convert.map_tables(rng.uniform([-5, -2, 2], [5, 2, 20], (M, 3)),
+                                rng.integers(0, 2**32, (M, 8), dtype=np.uint32),
+                                np.zeros(M), np.ones(M, bool), d)
+    gate = torch.ones((256, 512), dtype=torch.bool, device=d)
+    gate[60:200, 100:300] = False
+    full.step.run(*args, eye, eye, *tables, gate)    # first call: library loads, handles
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r = full.step.run(*args, eye, eye, *tables, gate)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    xy = r.xy[r.valid].round().long()
+    assert not (~gate[xy[:, 1], xy[:, 0]]).any()
+
+
+def _object_ba_problem(seed: int, n_poses: int):
+    """An object-scale BA window on the card (points within metres of the
+    object, poses moving past it, stereo and mono edges, 0.2 px noise), the
+    object dof mask, and constant-motion priors between the poses."""
+    from pointslot_torch.geometry import se3
+    from pointslot_torch.solvers import local_ba
+
+    def exp(xi):
+        return se3.se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy().astype(np.float64)
+
+    fx, cx, cy, bf = 721.5, 609.6, 172.9, 384.4
+    rng = np.random.default_rng(seed)
+    poses, T = [], exp([0.5, 0.3, 9.0, 0.0, 0.2, 0.0])
+    for _ in range(n_poses):
+        poses.append(T)
+        T = exp([0.3, 0.01 * rng.normal(), -0.4, 0.0, 0.03 * rng.normal(), 0.0]) @ T
+    pts = rng.uniform([-1.5, -1, -2], [1.5, 1, 2], (400, 3))
+    e_pose, e_point, e_obs = [], [], []
+    for p, Tco in enumerate(poses):
+        pc = pts @ Tco[:3, :3].T + Tco[:3, 3]
+        u, v = fx * pc[:, 0] / pc[:, 2] + cx, fx * pc[:, 1] / pc[:, 2] + cy
+        obs = np.stack([u, v, u - bf / pc[:, 2]], 1)
+        obs[:, :2] += rng.normal(size=(len(pts), 2)) * 0.2
+        e_pose += [p] * len(pts)
+        e_point += list(range(len(pts)))
+        e_obs.append(obs)
+    init = [poses[0]] + [exp(rng.normal(size=6) * 0.01) @ T for T in poses[1:]]
+    dof = np.zeros((16, 6), np.float32)
+    dof[:, :3] = dof[:, 4] = 1.0
+    E = len(e_pose)
+    prob, _ = local_ba.build_problem(
+        np.stack(init), [True] + [False] * (n_poses - 1), pts + rng.normal(size=pts.shape) * 0.02,
+        np.asarray(e_pose), np.asarray(e_point), np.concatenate(e_obs), rng.random(E) > 0.3,
+        rng.choice([1.0, 1 / 1.44], E), P_cap=16, L_cap=512, K=16, dof_mask=dof, device="cuda")
+    idx = np.stack([np.arange(n_poses - 1), np.arange(1, n_poses)], 1)
+    T_rel = np.stack([poses[i + 1] @ np.linalg.inv(poses[i]) for i in range(n_poses - 1)])
+    priors = local_ba.build_motion_priors(idx, T_rel, np.full(n_poses - 1, 50.0), R_cap=16,
+                                          device="cuda")
+    return prob, priors, dict(fx=fx, fy=fx, cx=cx, cy=cy, bf=bf)
+
+
+def test_bundle_adjust_repeats_on_card():
+    """Two solves of the same problems on the card give the same bits under
+    torch's default algorithms (the pose-block, coupling and prior sums are
+    one-hot GEMMs in a fixed order): one problem alone, and a batch of two
+    with priors, as the object mapping stacks them."""
+    _need_card()
+    from pointslot_torch.solvers import local_ba
+
+    (p1, pr1, cam), (p2, pr2, _) = _object_ba_problem(1, 8), _object_ba_problem(2, 5)
+    probs, priors = local_ba.stack_problems([p1, p2]), local_ba.stack_problems([pr1, pr2])
+    for solve in (lambda: local_ba.bundle_adjust(p1, **cam),
+                  lambda: local_ba.bundle_adjust_batched(probs, **cam, priors=priors)):
+        a, b = solve(), solve()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        assert torch.isfinite(a.poses).all() and (a.cost < 1e4).all()

@@ -183,10 +183,11 @@ class _Mirror:
     """Runs the port's DeviceTrackingPath beside the JAX one inside the JAX
     System: each refresh, fused-step frame and materialize of the JAX path
     is first done by the port's path, from a copy of the same map, tracker
-    state and device pose/velocity chain, on the same images."""
+    state and device pose/velocity chain, on the same images and under the
+    same gate (mode 4's background mask; None in mode 0)."""
 
     def __init__(self, jpath, path):
-        self.tables, self.frames, self.keyframes = [], [], []
+        self.tables, self.frames, self.keyframes, self.gates = [], [], [], []
         jrefresh, jtrack, jmaterialize = jpath.refresh, jpath.track, jpath.materialize
 
         def refresh(m, ref_kf):
@@ -202,11 +203,13 @@ class _Mirror:
             path._T_dev, path._vel_dev = (
                 None if v is None else torch.from_numpy(np.array(v))
                 for v in (jpath._T_dev, jpath._vel_dev))
-            got = path.track(state, left, right, frame_id)
+            self.gates.append(None if gate is None else np.array(gate))
+            got = path.track(state, left, right, frame_id, gate=self.gates[-1])
             want = jtrack(tracker, left, right, frame_id, gate=gate)
             # keyframe creation binds new points into the frame later
             self.frames.append((got, state, want, SimpleNamespace(
                 point_idx=None if want is None else want.point_idx.copy(),
+                T_cw=None if want is None else np.array(want.T_cw),
                 ref_kf=tracker.ref_kf, velocity=tracker.velocity,
                 n_matches_inliers=tracker.n_matches_inliers,
                 pt_visible=tracker.map.pt_visible.copy(),
@@ -337,7 +340,11 @@ def test_async_mapping_failure_is_raised(scene):
 
 @pytest.mark.parametrize("change, item", [
     (dict(loop=config.LoopConfig()), "item 13"),
-    (dict(slot_mode=config.SLOTMode.OFFLINE), "item 12"),
+    (dict(slot_mode=config.SLOTMode.OFFLINE, objects=config.ObjectConfig(use_gms=True)),
+     "item 10b"),
+    (dict(slot_mode=config.SLOTMode.OFFLINE,
+          objects=config.ObjectConfig(use_offline_flow=True)), "item 10b"),
+    (dict(slot_mode=config.SLOTMode.MANUAL_TRACKING), "item 14"),
     (dict(slot_mode=config.SLOTMode.DYNAMIC_SLAM), "item 14"),
     (dict(camera=config.CameraConfig(**CAM, k1=0.01)), "item 14"),
     (dict(runtime=config.RuntimeConfig(pipeline_stages=True)), "item 15"),
