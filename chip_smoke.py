@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive pointslot_torch's per-frame hot path and its mode-0 and mode-4
-Systems on one CUDA card.
+"""Drive pointslot_torch's per-frame hot path, its mode-0 and mode-4
+Systems and its loop closing and relocalization on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -44,14 +44,33 @@ sm_90a card). Phases, in order; any failure exits non-zero:
    first 8 frames against the port's CPU path at the CPU System test's
    bounds; (d)'s last object BA problem solved twice on the card (bit for
    bit);
-7. one JSON line with every kernel's numbers;
-8. last line: {"ok": true, "device": {...}}.
+7. loop closing and relocalization: the default SystemConfig (loop
+   closing on, the in-repo vocabulary, the global BA on its own thread) at
+   full KITTI width on all 64 frames of tests/test_loop_closing.py:15's
+   loop scene (make_loop_scene(n_frames=48, seed=41, radius=7.0)), two
+   ways -- (f) host tracker with sync mapping, gated as that test: state
+   OK, a loop closed, ATE and end-point error under 0.2 m after the GBA
+   merged, the GBA's cost dropping over all the map's keyframes, no
+   failure, 4 patch-gather launches per frame; (g) async mapping with the
+   fast path: state OK, no lost frame, a loop closed, ATE at most 1.5x
+   (f)'s + 0.1 m, no failure -- and (h) tests/test_loop_closing.py:46's
+   relocalization after three black frames (LOST, then OK within 0.3 m);
+   the loop closer's steps and the relocalizer timed with CUDA events;
+   (f)'s first loop event redone on the card (its kernel launches counted)
+   and on the port's CPU path from a copy of the state just before it
+   (candidate, groups, T_lc, essential graph, fused bindings, moved points,
+   GBA, at tests/test_torch_loop_system.py's bounds), and (h)'s PnP calls
+   redone on the CPU with the same draws;
+8. one JSON line with every kernel's numbers;
+9. last line: {"ok": true, "device": {...}}.
 
 Depth cuts, for the time limit: the mode-0 System runs 40 frames (async
-20), the mode-4 System 20; none was cut further by this phase's addition.
+20), the mode-4 System 20; the loop scene runs whole (it needs its full
+circle to close); none was cut further by this phase's addition.
 Needs no network; builds into build/kernels/.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -65,16 +84,19 @@ from pointslot_torch import convert, kernels
 from pointslot_torch.config import (CameraConfig, LoopConfig, ObjectConfig, RuntimeConfig,
                                     SLOTMode, SystemConfig, TrackingConfig)
 from pointslot_torch.datasets import synthetic
+from pointslot_torch.geometry import pnp
 from pointslot_torch.ops import patch
 from pointslot_torch.ops.frontend import StereoFrontend
 from pointslot_torch.ops.fused_track import FusedFrameStep
 from pointslot_torch.slam.fast_path import DeviceTrackingPath
+from pointslot_torch.slam.loop_closing import LoopCloser, gba_pregate
 from pointslot_torch.slam.object_system import heading_y
 from pointslot_torch.slam.objects import Detection
 from pointslot_torch.slam.system import System
 from pointslot_torch.slam.tracking import TrackingState
 from pointslot_torch.solvers import local_ba
 from pointslot_torch.utils.profiling import PROFILER
+from pointslot_torch.vocab.bow import train_default_vocab
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 MAP_POINTS, OBJECTS, OBJ_POINTS = 2048, 2, 256
@@ -99,6 +121,7 @@ MIN_OBJECT_SPAN = 15             # frames both objects stay in view from frame 0
 MAX_OBJ_CENTER_ERR_M = 0.5       # median, tests/test_object_slot.py:88
 MAX_OBJ_GAP_M, MAX_YAW_GAP = 1e-2, 1e-3   # card vs CPU, tests/test_torch_object_system.py
 MAX_OBJ_POINT_GAP = 0.05         # object point counts, same file
+LOOP_SCENE_FRAMES = 48           # make_loop_scene(n_frames=48): 64 frames, tests/test_loop_closing.py:15
 
 
 def _capture(fn, reps: int) -> torch.cuda.CUDAGraph:
@@ -985,6 +1008,370 @@ def run_objects(card: str, device="cuda") -> dict:
     return dict(d=d, e=e)
 
 
+# ---------------------------------------------------------------------------
+# loop closing and relocalization
+# ---------------------------------------------------------------------------
+
+def loop_config(**runtime) -> SystemConfig:
+    """Full KITTI width with the defaults of every cap and of LoopConfig
+    (loop closing on, the in-repo vocabulary, the global BA on its own
+    thread); the stage timers on."""
+    return SystemConfig(runtime=RuntimeConfig(profile=True, **runtime))
+
+
+def _anchored_errors(scene, traj):
+    """Translation error of every frame, the estimate's world anchored at
+    its first frame (tests/test_loop_closing.py:24-30)."""
+    A = scene.poses_world[traj[0][0]]
+    return [float(np.linalg.norm((A @ np.linalg.inv(T))[:3, 3] - scene.poses_world[f][:3, 3]))
+            for f, T, _ in traj]
+
+
+class _StepTimer:
+    """Wraps methods of an object to time each call between CUDA events on
+    the calling thread's stream (each step ends by copying its results to
+    the host): ms per call, by label."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def wrap(self, obj, name: str, label: str):
+        fn = getattr(obj, name)
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            end.synchronize()
+            self.ms.setdefault(label, []).append(start.elapsed_time(end))
+            return out
+
+        setattr(obj, name, timed)
+
+
+_LOOP_STEPS = (("_detect_loop", "detection"), ("_geometric_verification", "verification"),
+               ("_correct_loop", "correction"), ("_optimize_essential_graph", "essential graph"),
+               ("_search_and_fuse", "fuse"), ("_gba_solve", "GBA solve"))
+
+
+def _loop_state(closer):
+    """A copy of a LoopCloser's map and loop state (convert.copy_loop_state)."""
+    return (convert.map_state_from_arrays(closer.map), SimpleNamespace(
+        db=SimpleNamespace(vectors=closer.db.vectors.copy(), present=closer.db.present.copy()),
+        _consistent_groups=[(set(g), c) for g, c in closer._consistent_groups],
+        last_loop_kf=closer.last_loop_kf, loops_closed=closer.loops_closed))
+
+
+def run_loop(name: str, scene, frames, device="cuda", capture_first_event=False,
+             **runtime) -> dict:
+    """The default configuration (loop closing on) over the loop scene:
+    per-frame track_stereo with the patch gather's count set to 0 just
+    before and read just after; the loop closer's steps and the
+    relocalizer timed with CUDA events; with `capture_first_event`, a copy
+    of the map and loop state just before the first keyframe that closes a
+    loop. Returns the run's numbers (no gate)."""
+    system = System(loop_config(**runtime), device=device)
+    lc = system.loop_closer
+    timer = _StepTimer()
+    if device == "cuda":
+        for method, label in _LOOP_STEPS:
+            timer.wrap(lc, method, label)
+        timer.wrap(system.tracker.relocalizer, "relocalize", "relocalization")
+    out = dict(name=name, frames=len(frames), first_event=None)
+    if capture_first_event:
+        on_keyframe = lc.on_keyframe
+
+        def capture(kf):
+            before = _loop_state(lc) if out["first_event"] is None else None
+            closed = on_keyframe(kf)
+            if closed and before is not None:
+                out["first_event"] = (kf,) + before
+            return closed
+
+        lc.on_keyframe = capture
+    PROFILER.reset()
+    patch.LAUNCHES = 0
+    for i, (left, right) in enumerate(frames):
+        system.track_stereo(left, right, timestamp=i * 0.1, frame_id=i)
+    system.wait_for_mapping()
+    lc.wait_for_gba()
+    launches = patch.LAUNCHES
+    traj = system.camera_trajectory()
+    stats = system.shutdown()
+    errs = _anchored_errors(scene, traj)
+    out.update(
+        system=system, traj=traj, launches=launches, state=system.tracking_state,
+        lost=[e.frame_id for e in system.tracker.trajectory if e.lost],
+        loops=lc.loops_closed, gba=lc.last_gba_stats, keyframes=stats["n_keyframes"],
+        points=stats["n_points"], ate=float(np.sqrt(np.mean(np.square(errs)))), end_err=errs[-1],
+        track_ms=float(np.median([t * 1e3 for t in system.frame_times])),
+        fast_frames=system._fast_frames, steps=timer.ms,
+        errors=len(system.mapping_errors) + len(lc.gba_errors))
+    print(f"System ({name}) on {device}, {len(frames)} frames: state {out['state']}, lost "
+          f"{out['lost']}, loops closed {out['loops']}, ATE {out['ate']:.4f} m, end-point error "
+          f"{out['end_err']:.4f} m, keyframes {out['keyframes']}, points {out['points']}, GBA "
+          f"{out['gba']}, fast-path frames {out['fast_frames']}, patch_gather launches "
+          f"{launches} ({launches / len(frames):g}/frame), failures {out['errors']}; median "
+          f"{out['track_ms']:.3f} ms per track_stereo (host clock)")
+    if timer.ms:
+        print(f"System ({name}) loop steps, ms per call (CUDA events): "
+              f"{ {k: [round(t, 3) for t in v] for k, v in timer.ms.items()} }")
+    return out
+
+
+def _replay(cfg, event, device):
+    """The loop event `event` (keyframe, map copy, loop state) redone by a
+    LoopCloser on `device` from copies of that state, the global BA inline;
+    every step's result is recorded."""
+    kf, m, state = event
+    cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, background_gba=False))
+    closer = LoopCloser(cfg, convert.map_state_from_arrays(m), train_default_vocab(device=device),
+                        device=device)
+    convert.copy_loop_state(state, closer)
+    log = {}
+    for method, _ in _LOOP_STEPS:
+        fn = getattr(closer, method)
+
+        def wrapped(*args, _fn=fn, _name=method):
+            if _name == "_gba_solve":
+                mm = closer.map
+                log["pre_gba"] = (mm.kf_pose.copy(), mm.pt_pos.copy(), mm.pt_valid.copy(),
+                                  mm.kf_point_idx.copy())
+                log["gba_prob"] = args[0]["prob"]
+            result = _fn(*args)
+            log[_name] = result
+            if _name == "_detect_loop":
+                log["groups"] = sorted((sorted(g), c) for g, c in closer._consistent_groups)
+            return result
+
+        setattr(closer, method, wrapped)
+    closed = closer.on_keyframe(kf)
+    return closed, log, closer
+
+
+def compare_loop_event_with_cpu(event) -> dict:
+    """(f)'s first loop event redone on the card and on the port's CPU path
+    from the same copy of the state, at the CPU tests' bounds
+    (tests/test_torch_loop_system.py): the same candidate and consistent
+    groups, T_lc and the essential graph within 1e-4, the same fused
+    bindings and valid points, the moved points within 1e-3 m + 1e-4
+    relative, and the global BA's poses within 1e-3 m + 1e-4 relative or
+    twice the CPU solve's distance from the float64 solve of its problem,
+    its depth-observed points as close to the float64 solve as the CPU's,
+    the same inliers and costs within 1e-3 relative. Returns the card
+    replay's kernel launches."""
+    cfg = loop_config()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        closed, g, _ = _replay(cfg, event, "cuda")
+        torch.cuda.synchronize()
+    launches = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    t0 = time.perf_counter()
+    cpu_closed, c, cpu = _replay(cfg, event, "cpu")
+    cpu_s = time.perf_counter() - t0
+    checks = dict(closed=closed and cpu_closed,
+                  candidate=g["_detect_loop"] == c["_detect_loop"],
+                  groups=g["groups"] == c["groups"])
+    gaps = {}
+    if checks["closed"]:
+        gaps["T_lc"] = float(np.abs(g["_geometric_verification"][1]
+                                    - c["_geometric_verification"][1]).max())
+        gaps["essential graph"] = float(np.abs(g["_optimize_essential_graph"]
+                                               - c["_optimize_essential_graph"]).max())
+        pose, pos, valid, bind = g["pre_gba"]
+        cpose, cpos, cvalid, cbind = c["pre_gba"]
+        checks["fused bindings"] = bool((bind == cbind).all() and (valid == cvalid).all())
+        moved = np.abs(pos[cvalid] - cpos[cvalid]) <= 1e-3 + 1e-4 * np.abs(cpos[cvalid])
+        checks["moved points"] = bool(moved.all())
+        (res, stats), (cres, cstats) = g["_gba_solve"], c["_gba_solve"]
+        prob = gba_pregate(c["gba_prob"], cpu._cam_args)
+        exact = local_ba.bundle_adjust(local_ba.BAProblem(
+            *(x.double() if x.is_floating_point() else x for x in prob)), **cpu._cam_args)
+        own = np.abs(cres.poses - exact.poses.numpy()).max(axis=(1, 2), keepdims=True)
+        bound = np.maximum(1e-3 + 1e-4 * np.abs(cres.poses), 2.0 * own)
+        gaps["GBA poses"] = float(np.abs(res.poses - cres.poses).max())
+        checks["GBA poses"] = bool((np.abs(res.poses - cres.poses) <= bound).all())
+        stereo_in = (cres.obs_inlier & prob.obs_stereo.numpy()).any(axis=1)
+        g_err = np.abs(res.points - exact.points.numpy()).max(axis=1)[stereo_in]
+        c_err = np.abs(cres.points - exact.points.numpy()).max(axis=1)[stereo_in]
+        gaps["GBA points to float64 (median, p99, max), card"] = [
+            float(np.percentile(g_err, q)) for q in (50, 99, 100)]
+        gaps["GBA points to float64 (median, p99, max), CPU"] = [
+            float(np.percentile(c_err, q)) for q in (50, 99, 100)]
+        checks["GBA points"] = all(np.percentile(g_err, q) <= max(1e-3, np.percentile(c_err, q))
+                                   for q in (50, 99, 100))
+        checks["GBA inliers"] = bool((res.obs_inlier == cres.obs_inlier).all())
+        checks["GBA costs"] = all(abs(stats[k] - cstats[k]) <= 1e-3 * abs(cstats[k])
+                                  for k in ("cost_before", "cost_after"))
+        gaps["GBA size"] = (stats["n_kfs"], stats["n_points"], stats["n_obs"])
+    ok = (all(checks.values()) and gaps.get("T_lc", 1.0) <= 1e-4
+          and gaps.get("essential graph", 1.0) <= 1e-4)
+    print(f"loop event at keyframe {event[0]}, card vs CPU from the same state (CPU "
+          f"{cpu_s:.1f} s): candidate {g.get('_detect_loop')} vs {c.get('_detect_loop')}, "
+          f"checks {checks}, gaps {gaps} (bounds: T_lc and essential graph 1e-4); the card "
+          f"replay launched {launches} kernels")
+    if not ok:
+        raise SystemExit("the loop event: card and CPU path disagree")
+    return dict(launches=launches, gaps=gaps)
+
+
+def render_loop_frames():
+    """tests/test_loop_closing.py:15's loop scene at full width, all of it."""
+    scene = synthetic.make_loop_scene(n_frames=LOOP_SCENE_FRAMES, seed=41, radius=7.0)
+    renderer = synthetic.SyntheticRenderer(scene)
+    t0 = time.perf_counter()
+    frames = [renderer.render(i)[:2] for i in range(scene.n_frames)]
+    print(f"rendered {len(frames)} stereo pairs of the loop scene in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    return scene, frames
+
+
+def check_loop_run(out: dict) -> None:
+    """(f)'s gates, tests/test_loop_closing.py:14-41."""
+    n_kfs = len(out["system"].map.keyframe_ids())
+    gba = out["gba"]
+    bad = []
+    if out["state"] != TrackingState.OK:
+        bad.append(f"state {out['state']}")
+    if out["loops"] < 1:
+        bad.append("no loop closed")
+    if not (out["ate"] < 0.2 and out["end_err"] < 0.2):
+        bad.append(f"ATE {out['ate']:.4f} m, end-point error {out['end_err']:.4f} m (bounds 0.2)")
+    if gba is None or not gba["cost_after"] < gba["cost_before"] or gba["n_kfs"] != n_kfs:
+        bad.append(f"GBA {gba} with {n_kfs} keyframes in the map")
+    if out["errors"]:
+        bad.append(f"{out['errors']} worker or GBA failures")
+    if bad:
+        raise SystemExit(f"System ({out['name']}): " + "; ".join(bad))
+
+
+def relocalize_after_blackout(device="cuda") -> dict:
+    """(h): tests/test_loop_closing.py:46 at full width: LOST after three
+    black frames, OK again at the revisit of frame 5, within 0.3 m of the
+    pose tracked there. The PnP call of the relocalization is recorded."""
+    scene = synthetic.make_scene(n_frames=10, n_points=2500, n_objects=0, seed=43,
+                                 forward_speed=0.6)
+    renderer = synthetic.SyntheticRenderer(scene)
+    system = System(loop_config(), device=device)
+    timer = _StepTimer()
+    if device == "cuda":
+        timer.wrap(system.tracker.relocalizer, "relocalize", "relocalization")
+    solves = []
+    ransac = pnp.pnp_ransac
+
+    def recorded(*args, **kw):
+        result = ransac(*args, **kw)
+        solves.append((args, kw, result))
+        return result
+
+    rendered = [renderer.render(i)[:2] for i in range(10)]
+    patch.LAUNCHES = 0
+    pnp.pnp_ransac = recorded
+    try:
+        for i, (left, right) in enumerate(rendered):
+            system.track_stereo(left, right, timestamp=i * 0.1, frame_id=i)
+        pose_at_5 = next(T for f, T, _ in system.camera_trajectory() if f == 5)
+        black = np.zeros_like(rendered[0][0])
+        states = []
+        for j in range(3):
+            system.track_stereo(black, black, timestamp=1.0 + j * 0.1, frame_id=10 + j)
+            states.append(system.tracking_state)
+        frame = system.track_stereo(*rendered[5], timestamp=1.4, frame_id=13)
+    finally:
+        pnp.pnp_ransac = ransac
+    launches = patch.LAUNCHES
+    err = float(np.linalg.norm(frame.T_cw[:3, 3] - pose_at_5[:3, 3]))
+    out = dict(name="h: relocalization", frames=14, launches=launches, err=err,
+               state=system.tracking_state, states=states, solves=solves, steps=timer.ms)
+    system.shutdown()
+    print(f"System (h: relocalization) on {device}: states after the black frames {states}, "
+          f"at the revisit {out['state']}, pose error {err:.4f} m (bound 0.3), PnP calls "
+          f"{len(solves)}, relocalize ms per call (CUDA events) "
+          f"{[round(t, 3) for t in timer.ms.get('relocalization', [])]}, patch_gather launches "
+          f"{launches} over 14 frames")
+    if not (states[-1] == TrackingState.LOST and out["state"] == TrackingState.OK and err < 0.3):
+        raise SystemExit(f"System (h): states {states} then {out['state']}, error {err:.4f} m")
+    return out
+
+
+def compare_pnp_with_cpu(solves) -> None:
+    """The relocalization's PnP calls redone on the CPU path with the same
+    correspondences and draws, at tests/test_torch_loop.py's relocalization
+    bounds: the same outcome; where both succeed, translations within
+    0.05 m and rotation entries within 0.01. The inlier sets are printed,
+    not held: the 128 float32 six-point DLTs (cuSOLVER's eigh on the card,
+    LAPACK's on the CPU) can pick another best hypothesis and refine on
+    another inlier set."""
+    rows = []
+    for args, kw, got in solves:
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        want = pnp.pnp_ransac(*cpu_args, **kw)
+        ok, T, inl = convert.host(got.ok, got.T, got.inliers)
+        row = dict(ok=(bool(ok), bool(want.ok)), n=int(args[2].sum()),
+                   inliers=(int(inl.sum()), int(want.inliers.sum())))
+        if ok and want.ok:
+            both = (inl & want.inliers.numpy()).sum()
+            row.update(t_gap=float(np.abs(T[:3, 3] - want.T.numpy()[:3, 3]).max()),
+                       r_gap=float(np.abs(T[:3, :3] - want.T.numpy()[:3, :3]).max()),
+                       shared=float(both / max(inl.sum(), want.inliers.sum())))
+        rows.append(row)
+    print(f"relocalization PnP, card vs CPU with the same draws: {rows}")
+    bad = [r for r in rows if r["ok"][0] != r["ok"][1]
+           or ("t_gap" in r and not (r["t_gap"] <= 0.05 and r["r_gap"] <= 0.01))]
+    if not rows or bad:
+        raise SystemExit(f"relocalization PnP: card and CPU path disagree ({bad})")
+
+
+def run_loop_closing(card: str, device="cuda") -> dict:
+    """(f) sync mapping with the background GBA, (g) async mapping with the
+    fast path, (h) relocalization; (f)'s first loop event and (h)'s PnP on
+    the card against the port's CPU path. `device` "cpu" rehearses the
+    runs without a card (no timers, no comparison)."""
+    scene, frames = render_loop_frames()
+    f = run_loop("f: loop closing, sync mapping", scene, frames, device=device,
+                 capture_first_event=True)
+    check_loop_run(f)
+    print(f"System (f): {len(frames)} frames, patch_gather launches {f['launches']}")
+    if device == "cuda" and f["launches"] != 4 * len(frames):
+        raise SystemExit(f"System (f): expected {4 * len(frames)} patch_gather launches")
+    g = run_loop("g: loop closing, async mapping, fast path", scene, frames, device=device,
+                 async_mapping=True, device_resident_tracking=True)
+    bad = []
+    if g["state"] != TrackingState.OK or g["lost"] or g["loops"] < 1 or g["errors"]:
+        bad.append(f"state {g['state']}, lost {g['lost']}, loops {g['loops']}, "
+                   f"failures {g['errors']}")
+    if not g["ate"] <= 1.5 * f["ate"] + 0.1:
+        bad.append(f"ATE {g['ate']:.4f} m against (f)'s {f['ate']:.4f} m (bound 1.5x + 0.1 m)")
+    if device == "cuda" and g["launches"] != 4 * len(frames):
+        bad.append(f"{g['launches']} patch_gather launches, expected {4 * len(frames)}")
+    if bad:
+        raise SystemExit("System (g): " + "; ".join(bad))
+    h = relocalize_after_blackout(device)
+    if device == "cuda" and h["launches"] != 4 * h["frames"]:
+        raise SystemExit(f"System (h): expected {4 * h['frames']} patch_gather launches, got "
+                         f"{h['launches']}")
+    out = dict(f=f, g=g, h=h)
+    if device == "cuda":
+        out["event"] = compare_loop_event_with_cpu(f["first_event"])
+        compare_pnp_with_cpu(h["solves"])
+        steps = f["steps"]
+        print(f"loop summary on {card}: median ms per track_stereo (f) {f['track_ms']:.3f}, (g) "
+              f"{g['track_ms']:.3f}; (f) per loop event: detection "
+              f"{steps.get('detection')}, verification {steps.get('verification')}, correction "
+              f"and fuse {steps.get('correction')} (of which essential graph "
+              f"{steps.get('essential graph')}, fuse {steps.get('fuse')}), GBA solve "
+              f"{steps.get('GBA solve')} ms for (keyframes, points, observations) "
+              f"{out['event']['gaps'].get('GBA size')}; (g) GBA solve "
+              f"{g['steps'].get('GBA solve')} ms; relocalization {h['steps']} ms; kernel "
+              f"launches per loop event (card replay) {out['event']['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1029,6 +1416,8 @@ def main() -> int:
 
     runs = run_systems(card)
     runs.update(run_objects(card))
+    loop = run_loop_closing(card)
+    runs.update({k: loop[k] for k in ("f", "g", "h")})
 
     left = kernel["sites"][0]
     line = {"kernels": [{

@@ -4,17 +4,18 @@ A copy of the fields of ``pointslot_tpu/config.py`` that the ported slices
 read, with the same defaults: KITTI tracking's 1242x375 stereo camera, the
 1000-feature, 8-level, scale-1.2 ORB budget, the tracking policy, the
 object-SLOT knobs of mode 4, the bundle-adjustment caps and chi2 gates,
-and the runtime knobs. A field joins
-with the slice that reads it. ``slot_mode``, ``loop.enabled``,
-``runtime.pipeline_stages`` and the distortion coefficients keep the
-reference's defaults and exist so that the System can raise for what the
-port does not run yet.
+the loop-closing policy, and the runtime knobs. A field joins with the
+slice that reads it. ``slot_mode``, ``loop.vocab_path``,
+``loop.vocab_as_tree``, ``runtime.pipeline_stages`` and the distortion
+coefficients keep the reference's defaults and exist so that the System
+can raise for what the port does not run yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 class SLOTMode:
@@ -151,10 +152,44 @@ class BAConfig:
 
 @dataclass(frozen=True)
 class LoopConfig:
-    """Loop closing (reference src/LoopClosing.cc). Not ported yet: a
-    System asks for ``enabled=False``."""
+    """Loop closing (reference src/LoopClosing.cc)."""
 
     enabled: bool = True
+    covisibility_consistency_th: int = 3
+    sim3_ransac_iters: int = 64
+    min_sim3_inliers: int = 20
+    fix_scale: bool = True   # stereo
+    pose_graph_cg_iters: int = 100
+    # detection policy (reference src/LoopClosing.cc:106 DetectLoop)
+    min_kfs_before_detect: int = 10   # map must have this many KFs
+    cooldown_kfs: int = 10            # KFs between accepted loops
+    min_frame_distance: int = 20      # candidate must be this many frames old
+    max_candidates: int = 5           # BoW candidates examined per query
+    # relocalization BoW floor (reference KeyFrameDatabase::
+    # DetectRelocalizationCandidates minScore analog)
+    reloc_min_score: float = 0.015
+    reloc_max_candidates: int = 5
+    # inlier-weighted IRLS refinement of the RANSAC loop transform
+    # (reference Optimizer::OptimizeSim3, src/Optimizer.cc:1684)
+    refine_transform_iters: int = 4
+    # optional DBoW2 vocabulary file (not ported yet: ROADMAP item 13b);
+    # None trains or loads the small in-repo vocabulary
+    vocab_path: Optional[str] = None
+    # force the tree vocabulary + sparse inverted-index database (not
+    # ported yet: item 13b); None = auto by vocabulary size
+    vocab_as_tree: Optional[bool] = None
+    # full-map BA after loop correction (the reference's detached-thread
+    # GBA, src/LoopClosing.cc:648-752), after duplicate structure across
+    # the loop is merged (SearchAndFuse analog)
+    run_global_ba: bool = True
+    # run the GBA solve on a detached thread outside the map lock (the
+    # reference's RunGlobalBundleAdjustment thread + mbStopGBA abort);
+    # False = inline deterministic solve (unit tests)
+    background_gba: bool = True
+    # global-BA structure caps (all keyframes participate; points beyond the
+    # cap are corrected by their reference keyframe's pose delta)
+    gba_max_points: int = 8192
+    gba_obs_per_point: int = 8
 
 
 @dataclass(frozen=True)

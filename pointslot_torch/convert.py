@@ -4,8 +4,8 @@ The reference keeps descriptors as (N, 8) uint32; the port keeps the same
 bits in (N, 8) int32 words (torch has no uint32 shifts on the CPU). These
 helpers move map tables, object tables, poses and step results between the
 two layouts, so that "the same inputs" means the same bits, bring device
-results to the host in one transfer, and build the port's map and object
-state from the reference's numpy tables.
+results to the host in one transfer, and build the port's map, object and
+loop-closing state from the reference's numpy tables.
 """
 
 from __future__ import annotations
@@ -97,6 +97,20 @@ def map_state_from_arrays(other):
         setattr(m, f.name, value.copy() if isinstance(value, np.ndarray) else value)
     m._next_uid = other._next_uid
     return m
+
+
+def copy_loop_state(other, closer):
+    """Copy the loop-closing state of `other` (the reference's LoopCloser,
+    or any object with the same fields) into the port's LoopCloser
+    `closer`: the keyframe database's tf-idf vectors and presence flags,
+    the consistent covisibility groups, the last loop keyframe and the loop
+    count. The map is copied apart (``map_state_from_arrays``)."""
+    closer.db.vectors = np.array(other.db.vectors, np.float32)
+    closer.db.present = np.array(other.db.present, bool)
+    closer._consistent_groups = [(set(g), int(c)) for g, c in other._consistent_groups]
+    closer.last_loop_kf = other.last_loop_kf
+    closer.loops_closed = other.loops_closed
+    return closer
 
 
 def copy_object_state(value):

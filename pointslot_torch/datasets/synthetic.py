@@ -1,10 +1,12 @@
 """Synthetic stereo SLOT scene generator (numpy).
 
 A copy of the pieces of ``pointslot_tpu/datasets/synthetic.py`` that drive
-the per-frame hot path: ``make_scene`` (a camera driving through a textured
-corridor with moving boxes ahead), ``SyntheticRenderer`` (ray-cast stereo
-pairs + instance masks) and ``offline_detection_rows`` (the reference's
-1x24 detection rows). Same seeds, same images.
+the per-frame hot path and the System: ``make_scene`` (a camera driving
+through a textured corridor with moving boxes ahead), ``make_loop_scene``
+(a closed circle inside a textured room, the loop-closing fixture),
+``SyntheticRenderer`` (ray-cast stereo pairs + instance masks) and
+``offline_detection_rows`` (the reference's 1x24 detection rows). Same
+seeds, same images.
 """
 
 from __future__ import annotations
@@ -89,6 +91,18 @@ def _corridor_planes(half_width: float = 8.0, ground_y: float = 1.6,
     ]
 
 
+def _box_planes(x0, x1, z0, z1, ground_y=1.6, ceil_y=-8.0, seed=0) -> List[Plane]:
+    ex = np.array([1.0, 0, 0]); ey = np.array([0, 1.0, 0]); ez = np.array([0, 0, 1.0])
+    return [
+        Plane(np.array([0, ground_y, 0.0]), -ey, ex, ez, tex_seed=seed + 1),
+        Plane(np.array([x0, 0, 0.0]), ex, ez, ey, tex_seed=seed + 2),
+        Plane(np.array([x1, 0, 0.0]), -ex, ez, ey, tex_seed=seed + 3),
+        Plane(np.array([0, 0, z0]), ez, ex, ey, tex_seed=seed + 4),
+        Plane(np.array([0, 0, z1]), -ez, ex, ey, tex_seed=seed + 5),
+        Plane(np.array([0, ceil_y, 0.0]), ey, ex, ez, tex_seed=seed + 6),
+    ]
+
+
 def make_scene(
     n_frames: int = 30,
     camera: Optional[CameraConfig] = None,
@@ -133,6 +147,65 @@ def make_scene(
     return SyntheticScene(
         camera=cam, n_frames=n_frames, poses_world=poses,
         planes=_corridor_planes(seed=seed), objects=objects, seed=seed,
+    )
+
+
+def make_loop_scene(
+    n_frames: int = 40,
+    camera: Optional[CameraConfig] = None,
+    n_points: int = 3000,          # unused; API compat
+    seed: int = 0,
+    radius: float = 6.0,
+    n_objects: int = 0,
+) -> SyntheticScene:
+    """Closed circular trajectory (camera returns to the start) inside a
+    textured room — the loop-closure fixture. With n_objects > 0, textured
+    boxes drive ahead of the camera along the same circle (staying in view
+    for the whole run — the long-sequence object-tracking fixture)."""
+    cam = camera or CameraConfig()
+    yaw_rate = 2 * np.pi / n_frames
+    forward = radius * yaw_rate
+
+    # continue a quarter turn past closure so the revisited region produces
+    # several keyframes (loop detection needs consecutive consistent hits)
+    total = n_frames + n_frames // 3
+    poses = []
+    T = np.eye(4)
+    for _ in range(total):
+        poses.append(T.copy())
+        c, s = np.cos(yaw_rate), np.sin(yaw_rate)
+        Ry = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        step = np.eye(4)
+        step[:3, :3] = Ry
+        step[:3, 3] = Ry @ np.array([0, 0, forward])
+        T = T @ step
+
+    centers = np.stack([p[:3, 3] for p in poses])
+    margin = 6.0
+    planes = _box_planes(
+        centers[:, 0].min() - margin, centers[:, 0].max() + margin,
+        centers[:, 2].min() - margin, centers[:, 2].max() + margin,
+        seed=seed,
+    )
+    objects = []
+    for k in range(n_objects):
+        dims = np.array([1.6, 1.5, 3.0])
+        lead = max(n_frames // 8, 12) + 5 * k  # frames ahead on the circle
+        lateral = -2.5 + 5.0 * (k % 2)
+        obj_poses = []
+        for i in range(total):
+            Tc = poses[min(i + lead, total - 1)]
+            Two = Tc.copy()
+            Two[:3, 3] = Tc[:3, 3] + Tc[:3, :3] @ np.array([lateral, 0.85, 0.0])
+            obj_poses.append(Two)
+        objects.append(
+            SyntheticObject(track_id=k, dims=dims, poses_world=obj_poses,
+                            is_moving=True)
+        )
+
+    return SyntheticScene(
+        camera=cam, n_frames=total, poses_world=poses,
+        planes=planes, objects=objects, seed=seed,
     )
 
 

@@ -4,11 +4,15 @@ Port of ``pointslot_tpu/ops/hamming.py`` (popcount path). The words carry
 the same bits as the reference's uint32 words. torch has no popcount op, so
 it is SWAR bit arithmetic on int32: the sign bit is counted on its own and
 the low 31 bits are folded without any intermediate reaching 2**31, and
-every right shift is masked because int32 ``>>`` is arithmetic.
+every right shift is masked because int32 ``>>`` is arithmetic. On the CPU
+the tables go through numpy's ``bitwise_count`` where numpy has it (2.0
+and later): the same integers, without the SWAR's dozen passes over the
+(N, M, 8) words.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -24,8 +28,17 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return (v & 0x3F) + sign
 
 
+def _table_numpy(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    a = desc_a.numpy().view(np.uint32)
+    b = desc_b.numpy().view(np.uint32)
+    x = a[..., :, None, :] ^ b[..., None, :, :]
+    return torch.from_numpy(np.bitwise_count(x).sum(axis=-1, dtype=np.int32))
+
+
 def hamming_table_popcount(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """(..., N, 8) x (..., M, 8) int32 words -> (..., N, M) int32 distances."""
+    if desc_a.device.type == "cpu" and hasattr(np, "bitwise_count"):
+        return _table_numpy(desc_a, desc_b)
     x = desc_a[..., :, None, :] ^ desc_b[..., None, :, :]
     return popcount32(x).sum(dim=-1, dtype=torch.int32)
 

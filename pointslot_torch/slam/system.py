@@ -17,11 +17,18 @@ tracks and maps the objects. The async worker takes object keyframes too
 and solves up to 8 consecutive ones in one batched BA, never deferring a
 camera keyframe behind them.
 
+With ``LoopConfig.enabled`` (the default) each keyframe then goes to the
+loop closer (slam/loop_closing.py: detection, verification, correction and
+the global BA, on a thread of its own by default), under the map lock, and
+the tracker relocalizes a LOST frame against the keyframe database; the
+object side does not touch loop closing.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: SLOT modes 1-3 (item 14), the objects' GMS filter and
-offline-flow matching (item 10b), loop closing and relocalization
-(``loop.enabled``, item 13), lens distortion (item 14), pipeline stages
-(item 15) and a precomputed frame (the batched frontend, item 10b).
+offline-flow matching (item 10b), a vocabulary file or the tree
+vocabulary (``loop.vocab_path``, ``loop.vocab_as_tree``, item 13b), lens
+distortion (item 14), pipeline stages (item 15) and a precomputed frame
+(the batched frontend, item 10b).
 """
 
 from __future__ import annotations
@@ -42,10 +49,12 @@ from pointslot_torch.io.writers import write_object_detections_kitti, write_traj
 from pointslot_torch.ops.frontend import StereoFrontend
 from pointslot_torch.slam.fast_path import DeviceTrackingPath
 from pointslot_torch.slam.local_mapping import LocalMapper
+from pointslot_torch.slam.loop_closing import LoopCloser, Relocalizer
 from pointslot_torch.slam.map_state import MapState
 from pointslot_torch.slam.object_system import ObjectSystem, unported_object_options
 from pointslot_torch.slam.tracking import CameraTracker
 from pointslot_torch.utils.profiling import PROFILER
+from pointslot_torch.vocab.bow import train_default_vocab
 
 
 def _unported(cfg: SystemConfig) -> Optional[str]:
@@ -57,9 +66,10 @@ def _unported(cfg: SystemConfig) -> Optional[str]:
         missing = unported_object_options(cfg)
         if missing:
             return missing
-    if cfg.loop.enabled:
-        return ("loop closing and relocalization (ROADMAP item 13); pass "
-                "loop=LoopConfig(enabled=False)")
+    if cfg.loop.enabled and cfg.loop.vocab_path:
+        return "loop.vocab_path, the DBoW2 vocabulary loaders (ROADMAP item 13b)"
+    if cfg.loop.enabled and cfg.loop.vocab_as_tree:
+        return "loop.vocab_as_tree, the tree vocabulary (ROADMAP item 13b)"
     if cfg.runtime.pipeline_stages:
         return "pipeline_stages (ROADMAP item 15)"
     if cfg.camera.distorted:
@@ -85,10 +95,18 @@ class System:
         self.local_mapper = LocalMapper(self.cfg, self.map, device=self.device)
         self.tracker.new_kf_callback = self._on_new_keyframe
         self.tracker.reset_callback = self._on_reset
+        self.loop_closer = None
         self._fast = None
         self._fast_frames = 0
         if self.cfg.runtime.device_resident_tracking:
             self._fast = DeviceTrackingPath(self.cfg, self.frontend)
+        if self.cfg.loop.enabled:
+            self.loop_closer = LoopCloser(self.cfg, self.map,
+                                          train_default_vocab(device=self.device),
+                                          device=self.device)
+            self.loop_closer.on_loop_closed = self._on_loop_closed
+            self.tracker.relocalizer = Relocalizer(self.cfg, self.map, self.loop_closer.db,
+                                                   device=self.device)
         self.map.on_remove_keyframe = self._on_keyframe_removed
         self._object_system = None
         if self.cfg.slot_mode == SLOTMode.OFFLINE:
@@ -97,6 +115,9 @@ class System:
         # per phase and runs its device work outside it
         self.map_lock = threading.RLock()
         self.local_mapper.lock = self.map_lock
+        if self.loop_closer is not None:
+            # the GBA merge-back must exclude tracking/mapping map access
+            self.loop_closer.map_lock = self.map_lock
         self._mapping_queue = queue.Queue()
         self._mapping_thread = None
         self._ba_skips = 0   # consecutive InterruptBA skips (capped at 2)
@@ -141,6 +162,11 @@ class System:
         self._ba_skips = self._ba_skips + 1 if skip else 0
         with self.profiler.timer("mapping"):
             self.local_mapper.process_keyframe(kf, skip_ba=skip)
+            if self.loop_closer is not None:
+                # loop closing locks for the whole event, like the
+                # reference's CorrectLoop under mMutexMapUpdate
+                with self.map_lock:
+                    self.loop_closer.on_keyframe(kf)
 
     def _mapping_worker(self):
         """Async mapping thread (the reference's LocalMapping and
@@ -192,12 +218,31 @@ class System:
                 for _ in range(1 + drained):
                     self._mapping_queue.task_done()
 
+    def _on_loop_closed(self, corrections):
+        # pose landscape changed under the tracker: drop the velocity model
+        # so the next frame re-anchors on the corrected reference keyframe
+        self.tracker.velocity = None
+        if self.tracker.last_frame is not None and self.tracker.ref_kf >= 0:
+            # re-express the last frame pose against the corrected ref KF
+            ref = self.tracker.ref_kf
+            if ref in corrections:
+                T_old, T_new = corrections[ref]
+                rel = self.tracker.last_frame.T_cw @ np.linalg.inv(T_old.astype(np.float32))
+                self.tracker.last_frame.T_cw = (rel @ T_new).astype(np.float32)
+        if self._fast is not None:
+            self._fast.invalidate()
+
     def _on_keyframe_removed(self, kf: int):
         self.tracker.on_keyframe_removed(kf)
+        if self.loop_closer is not None:
+            self.loop_closer.db.remove(kf)
 
     def _on_reset(self):
         self.tracker.reset()
         self.local_mapper.recent_points.clear()
+        if self.loop_closer is not None:
+            self.loop_closer.db.clear()
+            self.loop_closer.abort_gba()  # an in-flight GBA is now stale
         if self._fast is not None:
             self._fast.invalidate()
 
@@ -225,7 +270,13 @@ class System:
         fast_ok = self._fast is not None and self._fast.ready(self.tracker)
         if fast_ok:
             with self.profiler.timer("tracking"), self.map_lock:
-                frame = self._fast.track(self.tracker, left, right, frame_id, gate=gate)
+                # probe again under the lock: a loop closure landing between
+                # the lock-free probe and here drops the velocity model
+                # (_on_loop_closed)
+                fast_ok = self._fast.ready(self.tracker)
+                frame = None
+                if fast_ok:
+                    frame = self._fast.track(self.tracker, left, right, frame_id, gate=gate)
                 if frame is not None:
                     self._fast_frames += 1
                     if self._fast_frames % self.cfg.runtime.fast_refresh_every == 0:
@@ -239,13 +290,13 @@ class System:
                         # the frame record carries its features in mode 4,
                         # as the reference's does
                         self._fast.materialize(frame)
-                else:
+                elif fast_ok:
                     # rejected: the host tracker re-runs the frame from the
                     # same extracted (and gate-checked) features
                     # (src/Tracking.cc:1148-1163)
                     frame = self._fast.fallback_frame(frame_id)
                     self.tracker.track(frame)
-        else:
+        if not fast_ok:
             with self.profiler.timer("frontend"):
                 sf = self.frontend(left, right, gate=gate)
             frame = self._frame_record(sf, gate, frame_id)
@@ -359,11 +410,18 @@ class System:
                 f"the first on {what}") from first
 
     def shutdown(self):
+        """Drain the mapping queue, wait for the global BA, stop the worker;
+        raise what the mapping worker or the GBA thread failed on."""
         if self._mapping_thread is not None:
             self._mapping_queue.join()
-            self._mapping_queue.put(None)
-            self._mapping_thread.join(timeout=10)
-            self._mapping_thread = None
+        try:
+            if self.loop_closer is not None:
+                self.loop_closer.wait_for_gba()
+        finally:
+            if self._mapping_thread is not None:
+                self._mapping_queue.put(None)
+                self._mapping_thread.join(timeout=10)
+                self._mapping_thread = None
         self._raise_mapping_errors()
         med = float(np.median(self.frame_times)) if self.frame_times else 0.0
         mean = float(np.mean(self.frame_times)) if self.frame_times else 0.0

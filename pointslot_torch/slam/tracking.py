@@ -12,9 +12,10 @@ device and come back in one transfer each. The reference pads the point
 count to a power of two only to bound XLA recompiles; padded rows match
 nothing, so the port passes the real count. The pose solve keeps the
 reference's cap of 1500 edges, which decides which edges are solved.
-Relocalization (ROADMAP item 13) is not ported: ``relocalizer`` stays
-None and a LOST tracker takes the reset path, as the reference does
-without a relocalizer.
+A LOST frame goes to ``relocalizer`` (slam/loop_closing.py's
+Relocalizer, set by the System when loop closing is on); without one, or
+when it fails on a small map, the tracker takes the reset path, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -91,7 +92,7 @@ class CameraTracker:
                          cy=float(cam.cy), bf=float(cam.bf))
         self._feats = (None, None)   # (frame, its features on the device)
         self.new_kf_callback = None  # set by System to trigger local mapping
-        self.relocalizer = None      # loop closing is not ported (ROADMAP 13)
+        self.relocalizer = None      # set by System (LOST recovery)
         self.reset_callback = None   # set by System (full map reset)
         self.n_lost_frames = 0
 

@@ -9,19 +9,23 @@ Run from the repository root on a CUDA machine. It runs itself twice in
 subprocesses: once with torch's default algorithms, once with
 torch.use_deterministic_algorithms(True, warn_only=True) and
 CUBLAS_WORKSPACE_CONFIG=:4096:8. Each drives chip_smoke.py's System runs
-(a) host tracker + sync mapping and (b) device-resident fast path, and
-its mode-4 run (d) host tracker + sync mapping, twice each on the same
-frames (chip_smoke's scenes at full KITTI width), records a digest of the
-inputs and outputs of every call to the device stages (frontend, fused
-step, project_and_match, brute_match, pose_optimize, triangulate,
-fine_tune_with_bbox, bundle_adjust, bundle_adjust_batched), and prints,
-for each pair of runs, the keyframe ids, the largest camera (and object)
-translation gap, and the first call whose inputs agree and whose outputs
-do not. In the deterministic run it also lists the ops that torch reports
+(a) host tracker + sync mapping and (b) device-resident fast path, its
+mode-4 run (d) host tracker + sync mapping, and its loop-closing run (f)
+with the global BA inline (``background_gba=False``) on the whole loop
+scene, twice each on the same frames (chip_smoke's scenes at full KITTI
+width), records a digest of the inputs and outputs of every call to the
+device stages (frontend, fused step, project_and_match, brute_match,
+pose_optimize, triangulate, fine_tune_with_bbox, bundle_adjust,
+bundle_adjust_batched, rigid_ransac, rigid_refine, pnp_ransac,
+optimize_pose_graph), and prints, for each pair of runs, the keyframe ids,
+the loop pairs closed (current, candidate keyframe), the largest camera
+(and object) translation gap, and the first call whose inputs agree and
+whose outputs do not. In the deterministic run it also lists the ops that torch reports
 as having no deterministic implementation.
 """
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -65,18 +69,20 @@ class Recorder:
     """Wraps each device stage; appends (stage, input digest, output digest)."""
 
     def __init__(self):
-        from pointslot_torch.geometry import triangulation
+        from pointslot_torch.geometry import pnp, triangulation
         from pointslot_torch.ops.frontend import StereoFrontend
         from pointslot_torch.ops.fused_track import FusedTrackStep
         from pointslot_torch.slam import matchers, object_system
-        from pointslot_torch.solvers import local_ba, pose_opt
+        from pointslot_torch.solvers import local_ba, pose_opt, posegraph
 
         self.calls = []
         targets = [(StereoFrontend, "__call__", True), (FusedTrackStep, "__call__", True),
                    (matchers, "project_and_match", False), (matchers, "brute_match", False),
                    (pose_opt, "pose_optimize", False), (triangulation, "triangulate", False),
                    (object_system, "fine_tune_with_bbox", False),
-                   (local_ba, "bundle_adjust", False), (local_ba, "bundle_adjust_batched", False)]
+                   (local_ba, "bundle_adjust", False), (local_ba, "bundle_adjust_batched", False),
+                   (pnp, "rigid_ransac", False), (pnp, "rigid_refine", False),
+                   (pnp, "pnp_ransac", False), (posegraph, "optimize_pose_graph", False)]
         for owner, attr, method in targets:
             setattr(owner, attr, self._wrap(getattr(owner, attr), f"{owner.__name__}.{attr}",
                                             method))
@@ -103,17 +109,29 @@ def run_once(args) -> None:
     rec = Recorder()
     camera = chip_smoke.render_system_frames(args.frames)
     objects = chip_smoke.render_object_frames(args.object_frames)
+    cases = [("a", camera, chip_smoke.system_config()),
+             ("b", camera, chip_smoke.system_config(device_resident_tracking=True)),
+             ("d", objects, chip_smoke.object_config())]
+    inline = chip_smoke.loop_config()
+    inline = inline.replace(loop=dataclasses.replace(inline.loop, background_gba=False))
+    cases.append(("f", chip_smoke.render_loop_frames(), inline))
     flagged = set()
     runs = {}
-    for label, (scene, frames), config in (
-            ("a", camera, chip_smoke.system_config()),
-            ("b", camera, chip_smoke.system_config(device_resident_tracking=True)),
-            ("d", objects, chip_smoke.object_config())):
+    for label, (scene, frames), config in cases:
         for rep in (1, 2):
             rec.calls = []
+            pairs = []
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 system = System(config, device="cuda")
+                if system.loop_closer is not None:
+                    correct = system.loop_closer._correct_loop
+
+                    def recorded(kf, cand, T_lc, _correct=correct, _pairs=pairs):
+                        _pairs.append((int(kf), int(cand)))
+                        return _correct(kf, cand, T_lc)
+
+                    system.loop_closer._correct_loop = recorded
                 for i, frame in enumerate(frames):
                     chip_smoke._track(system, frame, i)
                 system.wait_for_mapping()
@@ -122,11 +140,14 @@ def run_once(args) -> None:
             traj = {f: np.linalg.inv(T)[:3, 3] for f, T, _ in system.camera_trajectory()}
             obj = {(t.track_id, f): T[:3, 3] for t in getattr(
                 system._object_system, "all_tracks", ()) for f, T in t.poses_cf.items()}
-            runs[label, rep] = dict(calls=rec.calls, traj=traj, obj=obj,
+            # the trajectory's world anchored at its first frame (the loop
+            # scene initialises a few frames in)
+            errs = chip_smoke._anchored_errors(scene, system.camera_trajectory())
+            runs[label, rep] = dict(calls=rec.calls, traj=traj, obj=obj, pairs=pairs,
                                     kf_ids=chip_smoke._keyframe_ids(system.map),
-                                    ate=chip_smoke._ate(scene, system.camera_trajectory()))
+                                    ate=float(np.sqrt(np.mean(np.square(errs)))))
             system.shutdown()
-    for label in ("a", "b", "d"):
+    for label, _, _ in cases:
         r1, r2 = runs[label, 1], runs[label, 2]
         gap = max(float(np.abs(r1["traj"][f] - r2["traj"][f]).max())
                   for f in r1["traj"] if f in r2["traj"])
@@ -141,6 +162,7 @@ def run_once(args) -> None:
         print(json.dumps(dict(
             mode="deterministic" if args.deterministic else "default", run=label,
             calls=[len(r1["calls"]), len(r2["calls"])], kf_ids=[r1["kf_ids"], r2["kf_ids"]],
+            loop_pairs=[r1["pairs"], r2["pairs"]],
             ate=[r1["ate"], r2["ate"]], max_translation_gap_m=gap,
             max_object_translation_gap_m=obj_gap,
             same_object_poses=sorted(r1["obj"]) == sorted(r2["obj"]),

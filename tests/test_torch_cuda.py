@@ -240,3 +240,72 @@ def test_bundle_adjust_repeats_on_card():
         for x, y in zip(a, b):
             assert torch.equal(x, y)
         assert torch.isfinite(a.poses).all() and (a.cost < 1e4).all()
+
+
+def _gba_problem(seed: int, n_poses: int = 24, n_points: int = 2000):
+    """A global-BA-scale problem on the card: poses around a circle, points
+    on a ring outside it, each seen by up to 8 of them (stereo and mono
+    edges, 0.3 px noise), the first pose fixed, the pose capacity 32."""
+    from pointslot_torch.geometry import se3
+    from pointslot_torch.solvers import local_ba
+
+    fx, cx, cy, bf = 721.5, 609.6, 172.9, 384.4
+    rng = np.random.default_rng(seed)
+    poses = []
+    for k in range(n_poses):
+        a = 2 * np.pi * k / n_poses
+        T = np.eye(4)
+        T[:3, :3] = se3.so3_exp(torch.tensor([0.0, -a, 0.0])).numpy()
+        T[:3, 3] = -T[:3, :3] @ np.array([5 * np.sin(a), 0.0, 5 * np.cos(a) - 5])
+        poses.append(T)
+    ang = rng.uniform(0, 2 * np.pi, n_points)
+    r = rng.uniform(9, 14, n_points)
+    pts = np.stack([r * np.sin(ang), rng.uniform(-2, 2, n_points), r * np.cos(ang) - 5], 1)
+    e_pose, e_point, e_obs = [], [], []
+    for p, T in enumerate(poses):
+        pc = pts @ T[:3, :3].T + T[:3, 3]
+        u, v = fx * pc[:, 0] / pc[:, 2] + cx, fx * pc[:, 1] / pc[:, 2] + cy
+        seen = np.nonzero((pc[:, 2] > 1) & (u >= 0) & (u < 1242) & (v >= 0) & (v < 375))[0]
+        obs = np.stack([u, v, u - bf / pc[:, 2]], 1)[seen]
+        obs[:, :2] += rng.normal(size=(len(seen), 2)) * 0.3
+        e_pose += [p] * len(seen)
+        e_point += list(seen)
+        e_obs.append(obs)
+    E = len(e_pose)
+    init = [poses[0]] + [se3.se3_exp(torch.tensor(rng.normal(size=6) * 0.01, dtype=torch.float32))
+                         .numpy().astype(np.float64) @ T for T in poses[1:]]
+    prob, _ = local_ba.build_problem(
+        np.stack(init), [True] + [False] * (n_poses - 1), pts + rng.normal(size=pts.shape) * 0.05,
+        np.asarray(e_pose), np.asarray(e_point), np.concatenate(e_obs), rng.random(E) > 0.3,
+        rng.choice([1.0, 1 / 1.44], E), P_cap=32, L_cap=n_points, K=8, device="cuda")
+    return prob
+
+
+def test_global_ba_repeats_on_card():
+    """Two global-BA solves of the same problem on the card, as the loop
+    closer runs them (pre-gate, two-stage LM, cost statistics), give the
+    same bits; and so do two pose-graph solves of its essential graph."""
+    _need_card()
+    from pointslot_torch.slam.loop_closing import LoopCloser
+    from pointslot_torch.slam.map_state import MapState
+    from pointslot_torch.solvers import posegraph
+    from pointslot_torch.vocab.bow import train_default_vocab
+
+    closer = LoopCloser(SystemConfig(), MapState(), train_default_vocab(device="cuda"),
+                        device="cuda")
+    snap = dict(prob=_gba_problem(3), n_kfs=24, pts=np.arange(2000))
+    (a, sa), (b, sb) = closer._gba_solve(snap), closer._gba_solve(snap)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert sa == sb and sa["cost_after"] < sa["cost_before"]
+    poses = snap["prob"].poses[:24]
+    K = len(poses)
+    e_i = torch.arange(1, K, device="cuda")
+    e_j = torch.arange(0, K - 1, device="cuda")
+    meas = poses[e_i] @ torch.linalg.inv(poses[e_j])
+    prob = posegraph.PoseGraphProblem(
+        poses=poses, fixed=torch.arange(K, device="cuda") == 0,
+        valid=torch.ones(K, dtype=torch.bool, device="cuda"), e_i=e_i, e_j=e_j, e_meas=meas,
+        e_weight=torch.ones(K - 1, device="cuda"),
+        e_valid=torch.ones(K - 1, dtype=torch.bool, device="cuda"))
+    assert torch.equal(posegraph.optimize_pose_graph(prob), posegraph.optimize_pose_graph(prob))

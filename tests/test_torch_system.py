@@ -338,8 +338,30 @@ def test_async_mapping_failure_is_raised(scene):
     assert system._mapping_thread is None
 
 
+def test_fast_path_probes_again_under_the_map_lock(scene):
+    """A loop closure can land between the fast path's lock-free ready()
+    probe and the map lock (it drops the velocity model); the System probes
+    again under the lock and hands the frame to the host tracker."""
+    _, frames = scene
+    system = System(_configs(config, device_resident_tracking=True), device="cpu")
+    answers = iter([True, False])
+    probes = []
+
+    def ready(tracker):
+        probes.append(system.map_lock._is_owned())
+        return next(answers)
+
+    system._fast.ready = ready
+    system.track_stereo(*frames[0], timestamp=0.0, frame_id=0)
+    assert probes == [False, True]   # the second probe holds the lock
+    assert system._fast_frames == 0
+    assert system.tracking_state == TrackingState.OK   # the host tracker initialised
+    system.shutdown()
+
+
 @pytest.mark.parametrize("change, item", [
-    (dict(loop=config.LoopConfig()), "item 13"),
+    (dict(loop=config.LoopConfig(vocab_path="ORBvoc.txt")), "item 13b"),
+    (dict(loop=config.LoopConfig(vocab_as_tree=True)), "item 13b"),
     (dict(slot_mode=config.SLOTMode.OFFLINE, objects=config.ObjectConfig(use_gms=True)),
      "item 10b"),
     (dict(slot_mode=config.SLOTMode.OFFLINE,
@@ -354,6 +376,21 @@ def test_unported_configurations_raise(change, item):
     instead of running without it."""
     with pytest.raises(NotImplementedError, match=item):
         System(_configs(config).replace(**change), device="cpu")
+
+
+@pytest.mark.parametrize("slot_mode", [config.SLOTMode.SLAM, config.SLOTMode.OFFLINE])
+def test_default_configuration_builds_with_loop_closing(slot_mode):
+    """SystemConfig() (loop closing on, the default) builds on the CPU in
+    modes 0 and 4, with a loop closer sharing the map lock and a
+    relocalizer on the tracker."""
+    from pointslot_torch.slam.loop_closing import LoopCloser, Relocalizer
+
+    system = System(config.SystemConfig(slot_mode=slot_mode), device="cpu")
+    assert isinstance(system.loop_closer, LoopCloser)
+    assert isinstance(system.tracker.relocalizer, Relocalizer)
+    assert system.loop_closer.map_lock is system.map_lock
+    assert system.tracker.relocalizer.db is system.loop_closer.db
+    assert system.shutdown()["n_keyframes"] == 0
 
 
 def test_precomputed_frame_and_cuda_without_card_raise(scene):
