@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive pointslot_torch's per-frame hot path, its mode-0 and mode-4
-Systems and its loop closing and relocalization on one CUDA card.
+Systems with their options, and its loop closing and relocalization on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -43,7 +44,17 @@ sm_90a card). Phases, in order; any failure exits non-zero:
    port's CPU path from the same state (pose, bindings, valid flags); (d)'s
    first 8 frames against the port's CPU path at the CPU System test's
    bounds; (d)'s last object BA problem solved twice on the card (bit for
-   bit);
+   bit); then the options of mode 4: (i) offline-flow matching and the
+   GMS filter ((d)'s configuration on the same 20 frames, each with its
+   forward flow from the rendered depth and the true motion), gated on
+   (d)'s camera gates, a track flow-tracked on 3 frames or more and the
+   object position RMSE (tests/test_flow_tracking.py:212-239), with the
+   takeovers and GMS drops per frame printed and the first matching
+   guided_match and gms_filter calls redone on the CPU path (equal); (k)
+   (i)'s configuration with the fast path and async mapping for 10 frames,
+   save_checkpoint, a fresh System, load_checkpoint (the restored tables
+   equal the saved ones) and frames 10-19: state OK, no lost frame, ATE at
+   most 1.5x (i)'s + 0.1 m, the object centre error;
 7. loop closing and relocalization: the default SystemConfig (loop
    closing on, the in-repo vocabulary, the global BA on its own thread) at
    full KITTI width on all 64 frames of tests/test_loop_closing.py:15's
@@ -60,13 +71,23 @@ sm_90a card). Phases, in order; any failure exits non-zero:
    and on the port's CPU path from a copy of the state just before it
    (candidate, groups, T_lc, essential graph, fused bindings, moved points,
    GBA, at tests/test_torch_loop_system.py's bounds), and (h)'s PnP calls
-   redone on the CPU with the same draws;
-8. one JSON line with every kernel's numbers;
-9. last line: {"ok": true, "device": {...}}.
+   redone on the CPU with the same draws; then (j): the same 64 frames
+   through a tree vocabulary of ORBvoc's shape (k = 10, L = 6, synthesized
+   from seed 0, written with save_binary under build/vocab/ and loaded by
+   the System through loop.vocab_path with vocab_as_tree): a loop closed,
+   ATE at most 1.5x (f)'s + 0.02 m (tests/test_vocab_orbvoc_scale.py:
+   142-152), the descent timed with CUDA events and its word ids on the
+   card against the CPU path (equal);
+8. lens distortion (l): tests/test_distortion_e2e.py's k1 = -0.05
+   sequence at full width, calibrated (the fast path configured; it takes
+   no frame) and uncalibrated: at least 11 of 12 frames tracked,
+   calibrated ATE under 0.10 m, uncalibrated over 1.5x the calibrated;
+9. one JSON line with every kernel's numbers;
+10. last line: {"ok": true, "device": {...}}.
 
 Depth cuts, for the time limit: the mode-0 System runs 40 frames (async
 20), the mode-4 System 20; the loop scene runs whole (it needs its full
-circle to close); none was cut further by this phase's addition.
+circle to close); none was cut further by the later phases' addition.
 Needs no network; builds into build/kernels/.
 """
 
@@ -75,19 +96,23 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from pointslot_torch import convert, kernels
-from pointslot_torch.config import (CameraConfig, LoopConfig, ObjectConfig, RuntimeConfig,
-                                    SLOTMode, SystemConfig, TrackingConfig)
+from pointslot_torch.config import (CameraConfig, LoopConfig, ObjectConfig, ORBConfig,
+                                    RuntimeConfig, SLOTMode, SystemConfig, TrackingConfig)
 from pointslot_torch.datasets import synthetic
 from pointslot_torch.geometry import pnp
 from pointslot_torch.ops import patch
 from pointslot_torch.ops.frontend import StereoFrontend
 from pointslot_torch.ops.fused_track import FusedFrameStep
+from pointslot_torch.ops.orb import ORBExtractor
+from pointslot_torch.slam import checkpoint, matchers
+from pointslot_torch.slam import object_system as objsys_mod
 from pointslot_torch.slam.fast_path import DeviceTrackingPath
 from pointslot_torch.slam.loop_closing import LoopCloser, gba_pregate
 from pointslot_torch.slam.object_system import heading_y
@@ -96,7 +121,8 @@ from pointslot_torch.slam.system import System
 from pointslot_torch.slam.tracking import TrackingState
 from pointslot_torch.solvers import local_ba
 from pointslot_torch.utils.profiling import PROFILER
-from pointslot_torch.vocab.bow import train_default_vocab
+from pointslot_torch.vocab.bow import load_vocab, train_default_vocab
+from pointslot_torch.vocab.tree import SparseKeyFrameDatabase, TreeVocabulary
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 MAP_POINTS, OBJECTS, OBJ_POINTS = 2048, 2, 256
@@ -122,6 +148,12 @@ MAX_OBJ_CENTER_ERR_M = 0.5       # median, tests/test_object_slot.py:88
 MAX_OBJ_GAP_M, MAX_YAW_GAP = 1e-2, 1e-3   # card vs CPU, tests/test_torch_object_system.py
 MAX_OBJ_POINT_GAP = 0.05         # object point counts, same file
 LOOP_SCENE_FRAMES = 48           # make_loop_scene(n_frames=48): 64 frames, tests/test_loop_closing.py:15
+MIN_FLOW_FRAMES = 3              # flow-tracked frames of the best track, tests/test_flow_tracking.py:220
+MAX_FLOW_RMSE_M = 0.5            # object position RMSE with flow, tests/test_flow_tracking.py:239
+RESUME_AT = 10                   # (k): frames tracked before the checkpoint
+ORBVOC_K, ORBVOC_DEPTH = 10, 6   # ORBvoc's shape, tests/test_vocab_orbvoc_scale.py:17
+DIST_K1, DIST_FRAMES = -0.05, 12  # tests/test_distortion_e2e.py:12-13
+BUILD_DIR = Path(__file__).resolve().parent / "build"   # git-ignored: checkpoint, vocabulary
 
 
 def _capture(fn, reps: int) -> torch.cuda.CUDAGraph:
@@ -630,9 +662,11 @@ class FastPathMirror:
 
 def _track(system, frame, i: int):
     """One track_stereo call; a mode-4 frame carries its detections and
-    instance mask."""
+    instance mask, and (phase (i)) its forward flow."""
     left, right, *objs = frame
     kw = dict(detections=objs[0], instance_mask=objs[1]) if objs else {}
+    if len(objs) > 2:
+        kw["flow"] = objs[2]
     system.track_stereo(left, right, timestamp=i * 0.1, frame_id=i, **kw)
 
 
@@ -649,19 +683,22 @@ def _object_center_errors(scene, tracks):
 
 def run_system(name: str, scene, frames, device="cuda", profile_at=None,
                snapshot_at=None, config_fn=None, gate_objects=True, mirror_fast=0,
-               **runtime) -> dict:
+               setup=None, **runtime) -> dict:
     """Drive System.track_stereo over `frames` on `device` with the patch
     gather's count set to 0 just before and read just after; `config_fn`
     (system_config by default) makes the configuration from `runtime`;
     `gate_objects` holds a mode-4 run to the object gates; `mirror_fast`
     fused-step frames are redone on the CPU path (FastPathMirror, not
-    counted: its CPU wrapper launches no kernel). Returns the run's numbers;
-    raises SystemExit when a gate fails, and RuntimeError from
-    wait_for_mapping when the async mapping worker failed."""
+    counted: its CPU wrapper launches no kernel); `setup(system)` runs
+    before the first frame and may return a callable run after the last.
+    Returns the run's numbers; raises SystemExit when a gate fails, and
+    RuntimeError from wait_for_mapping when the async mapping worker
+    failed."""
     from torch.profiler import ProfilerActivity, profile
 
     system = System((config_fn or system_config)(**runtime), device=device)
     objsys = system._object_system
+    teardown = setup(system) if setup is not None else None
     mirror = FastPathMirror(system, mirror_fast) if mirror_fast else None
     PROFILER.reset()
     timed_ba = _TimedBA() if device == "cuda" else None
@@ -696,6 +733,8 @@ def run_system(name: str, scene, frames, device="cuda", profile_at=None,
     finally:
         if timed_ba is not None:
             timed_ba.remove()
+        if teardown is not None:
+            teardown()
     traj = system.camera_trajectory()
     summary = PROFILER.summary()["stages"]
     stats = system.shutdown()
@@ -915,11 +954,12 @@ def object_config(set_init_position_by_points: bool = False, **runtime) -> Syste
         runtime=RuntimeConfig(profile=True, **runtime))
 
 
-def render_object_frames(n: int):
+def render_object_frames(n: int, flow: bool = False):
     """tests/test_object_slot.py's two-object scene at full width: (scene,
     frames), each frame (left, right, detections, instance mask) with the
-    offline detections of offline_detection_rows. Fails unless both objects
-    are in view from frame 0 for at least MIN_OBJECT_SPAN frames."""
+    offline detections of offline_detection_rows, and with `flow` the
+    frame's forward flow to the next (None for the last). Fails unless both
+    objects are in view from frame 0 for at least MIN_OBJECT_SPAN frames."""
     scene = synthetic.make_scene(n_frames=n, n_points=2500, n_objects=2, seed=31,
                                  forward_speed=SYSTEM_SPEED)
     renderer = synthetic.SyntheticRenderer(scene)
@@ -927,10 +967,15 @@ def render_object_frames(n: int):
     t0 = time.perf_counter()
     frames = []
     for i in range(n):
-        left, right, inst = renderer.render(i)
+        if flow:
+            left, right, inst, depth = renderer.render_with_depth(i)
+        else:
+            left, right, inst = renderer.render(i)
         fr = rows[(rows[:, 0] == i) & (rows[:, 1] >= 0)]
         frames.append((left, right, [Detection.from_row24(r, mask_value=int(r[1]) + 1)
                                      for r in fr], inst))
+        if flow:
+            frames[-1] += (gt_forward_flow(scene, i, inst, depth) if i + 1 < n else None,)
     spans = {}
     for o in scene.objects:
         seen = rows[rows[:, 1] == o.track_id][:, 0].astype(int)
@@ -1065,14 +1110,16 @@ def _loop_state(closer):
 
 
 def run_loop(name: str, scene, frames, device="cuda", capture_first_event=False,
-             **runtime) -> dict:
-    """The default configuration (loop closing on) over the loop scene:
-    per-frame track_stereo with the patch gather's count set to 0 just
-    before and read just after; the loop closer's steps and the
-    relocalizer timed with CUDA events; with `capture_first_event`, a copy
-    of the map and loop state just before the first keyframe that closes a
-    loop. Returns the run's numbers (no gate)."""
-    system = System(loop_config(**runtime), device=device)
+             loop=None, **runtime) -> dict:
+    """The default configuration (loop closing on; `loop`, a LoopConfig, in
+    place of the default one) over the loop scene: per-frame track_stereo
+    with the patch gather's count set to 0 just before and read just
+    after; the loop closer's steps and the relocalizer timed with CUDA
+    events; with `capture_first_event`, a copy of the map and loop state
+    just before the first keyframe that closes a loop. Returns the run's
+    numbers (no gate)."""
+    cfg = loop_config(**runtime)
+    system = System(cfg if loop is None else cfg.replace(loop=loop), device=device)
     lc = system.loop_closer
     timer = _StepTimer()
     if device == "cuda":
@@ -1355,7 +1402,10 @@ def run_loop_closing(card: str, device="cuda") -> dict:
     if device == "cuda" and h["launches"] != 4 * h["frames"]:
         raise SystemExit(f"System (h): expected {4 * h['frames']} patch_gather launches, got "
                          f"{h['launches']}")
-    out = dict(f=f, g=g, h=h)
+    t0 = time.perf_counter()
+    j = run_orbvoc_loop(scene, frames, f, device)
+    print(f"phase (j) took {time.perf_counter() - t0:.1f} s")
+    out = dict(f=f, g=g, h=h, j=j)
     if device == "cuda":
         out["event"] = compare_loop_event_with_cpu(f["first_event"])
         compare_pnp_with_cpu(h["solves"])
@@ -1370,6 +1420,400 @@ def run_loop_closing(card: str, device="cuda") -> dict:
               f"{g['steps'].get('GBA solve')} ms; relocalization {h['steps']} ms; kernel "
               f"launches per loop event (card replay) {out['event']['launches']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the options of modes 0 and 4: offline flow and GMS, an ORBvoc-scale tree
+# vocabulary from a file, checkpoint and resume, lens distortion
+# ---------------------------------------------------------------------------
+
+def gt_forward_flow(scene, i: int, inst, depth) -> np.ndarray:
+    """Dense forward flow frame i -> i+1 from frame i's rendered depth and
+    the true camera and object poses (tests/test_flow_tracking.py:144-172)."""
+    H, W = depth.shape
+    cam = scene.camera
+    us, vs = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    z = depth.astype(np.float64)
+    valid = z < 1e8
+    pc = np.stack([(us - cam.cx) * z / cam.fx, (vs - cam.cy) * z / cam.fy, z], -1)
+    T_wc = scene.poses_world[i]
+    T_cw_next = np.linalg.inv(scene.poses_world[i + 1])
+    pw = pc @ T_wc[:3, :3].T + T_wc[:3, 3]
+    pw_next = pw.copy()
+    for obj in scene.objects:
+        m = inst == (obj.track_id + 1)
+        if not m.any():
+            continue
+        T_rel = obj.poses_world[i + 1] @ np.linalg.inv(obj.poses_world[i])
+        pw_next[m] = pw[m] @ T_rel[:3, :3].T + T_rel[:3, 3]
+    pc2 = pw_next @ T_cw_next[:3, :3].T + T_cw_next[:3, 3]
+    z2 = np.maximum(pc2[..., 2], 1e-6)
+    flow = np.stack([cam.fx * pc2[..., 0] / z2 + cam.cx - us,
+                     cam.fy * pc2[..., 1] / z2 + cam.cy - vs], -1).astype(np.float32)
+    flow[~valid] = 0.0
+    return flow
+
+
+def flow_object_config(**runtime) -> SystemConfig:
+    """(d)'s configuration with offline-flow matching and the GMS filter on."""
+    cfg = object_config(**runtime)
+    return cfg.replace(objects=dataclasses.replace(cfg.objects, use_offline_flow=True,
+                                                   use_gms=True))
+
+
+class _FlowGmsRecorder:
+    """Phase (i)'s setup: per object step, the flow-guided takeovers and the
+    GMS drops (the profiler's counters read around it); the first
+    guided_match and gms_filter calls that match something, their inputs
+    and outputs kept for the CPU check."""
+
+    def __init__(self):
+        self.per_frame = []
+        self.calls = {}
+
+    def _record(self, name, fn, matched):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            if name not in self.calls and matched(out):
+                self.calls[name] = ([a.clone() if torch.is_tensor(a) else a for a in args],
+                                    kw, out)
+            return out
+        return wrapped
+
+    def __call__(self, system):
+        objsys = system._object_system
+        track = objsys._track_objects_batched
+        guided, gms = matchers.guided_match, objsys_mod.gms_filter
+        counters = PROFILER.counters
+
+        def counted(items, *args, **kw):
+            before = counters["obj_flow_takeovers"], counters["obj_gms_dropped"]
+            out = track(items, *args, **kw)
+            self.per_frame.append((items[0][0].frame_id if items else None,
+                                   int(counters["obj_flow_takeovers"] - before[0]),
+                                   int(counters["obj_gms_dropped"] - before[1])))
+            return out
+
+        objsys._track_objects_batched = counted
+        matchers.guided_match = self._record("guided_match", guided,
+                                             lambda r: bool((r.n_matches >= 5).any()))
+        objsys_mod.gms_filter = self._record("gms_filter", gms,
+                                             lambda keep: bool((~keep).any() & keep.any()))
+
+        def teardown():
+            matchers.guided_match, objsys_mod.gms_filter = guided, gms
+        return teardown
+
+
+def compare_matches_with_cpu(calls) -> None:
+    """The recorded guided_match and gms_filter calls of the card redone on
+    the port's CPU path: equal bindings, counts and keep masks."""
+    if set(calls) != {"guided_match", "gms_filter"}:
+        raise SystemExit(f"System (i): guided_match or gms_filter never matched ({sorted(calls)})")
+    rows = {}
+    for name, (args, kw, out) in calls.items():
+        cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+        if name == "guided_match":
+            got = matchers.guided_match(*cpu_args, **kw)
+            equal = (torch.equal(got.point_for_feature, out.point_for_feature.cpu())
+                     and torch.equal(got.n_matches, out.n_matches.cpu()))
+            rows[name] = dict(shape=tuple(args[0].shape), matches=out.n_matches.tolist(),
+                              equal=equal)
+        else:
+            got = objsys_mod.gms_filter(*cpu_args, **kw)
+            rows[name] = dict(shape=tuple(args[0].shape), kept=int(out.sum()),
+                              valid=int(args[2].sum()), equal=torch.equal(got, out.cpu()))
+    print(f"System (i) card vs CPU path on the first matching calls: {rows}")
+    if not all(r["equal"] for r in rows.values()):
+        raise SystemExit("System (i): guided_match or gms_filter differs between card and CPU")
+
+
+def _object_world_rmse(scene, tracks) -> float:
+    """Object position RMSE in the world (tests/test_flow_tracking.py:223-239)."""
+    gt = {o.track_id: o for o in scene.objects}
+    errs = [np.linalg.norm(T_wo[:3, 3] - gt[t.track_id].poses_world[f][:3, 3])
+            for t in tracks if t.track_id in gt for f, T_wo in t.poses_world.items()]
+    return float(np.sqrt(np.mean(np.square(errs)))) if errs else float("inf")
+
+
+def run_flow_objects(card: str, device="cuda") -> dict:
+    """(i): mode 4 with offline flow and GMS, host tracker and sync mapping,
+    on OBJECT_FRAMES frames of the two-object scene with their forward
+    flow; gated on (d)'s camera gates, a track flow-tracked on at least
+    MIN_FLOW_FRAMES frames and the object position RMSE; the first matching
+    guided_match and gms_filter calls redone on the CPU path."""
+    scene, frames = render_object_frames(OBJECT_FRAMES, flow=True)
+    rec = _FlowGmsRecorder()
+    t0 = time.perf_counter()
+    i = run_system("i: mode 4, offline flow + GMS, host tracker, sync mapping", scene, frames,
+                   device=device, config_fn=flow_object_config, gate_objects=False, setup=rec)
+    i["seconds"] = time.perf_counter() - t0
+    flow_frames = {t.track_id: t.flow_tracked_frames for t in i["tracks"]}
+    rmse = _object_world_rmse(scene, i["tracks"])
+    print(f"System (i) per object step (frame, flow-guided takeovers, GMS drops): "
+          f"{rec.per_frame}; flow-tracked frames per track {flow_frames} (gate >= "
+          f"{MIN_FLOW_FRAMES}); object position RMSE {rmse:.4f} m (bound {MAX_FLOW_RMSE_M}); "
+          f"object stage {i['obj_ms']:.3f} ms per frame (median); {i['seconds']:.1f} s")
+    if not (max(flow_frames.values(), default=0) >= MIN_FLOW_FRAMES
+            and rmse < MAX_FLOW_RMSE_M):
+        raise SystemExit("System (i): the flow gates failed")
+    if not sum(r[2] for r in rec.per_frame) >= 1:
+        raise SystemExit("System (i): GMS dropped no binding")
+    compare_matches_with_cpu(rec.calls)
+    i.update(per_frame=rec.per_frame, flow_frames=flow_frames, rmse=rmse)
+    return dict(i=i, scene=scene, frames=frames)
+
+
+def _checkpoint_tables(system) -> dict:
+    """Everything a checkpoint restores, as named host arrays."""
+    out = {f"map/{f}": np.array(getattr(system.map, f)) for f in checkpoint._MAP_FIELDS}
+    out["map/next_uid"] = np.int64(system.map._next_uid)
+    tr = system.tracker
+    out["tracker"] = np.array([tr.state, tr.ref_kf, tr.last_kf_frame_id])
+    for f, T, lost in system.camera_trajectory():
+        out[f"traj/{f}"] = np.append(T.ravel(), lost)
+    for t in system._object_system.all_tracks:
+        for a in checkpoint._TRACK_SCALARS + checkpoint._TRACK_ARRAYS:
+            out[f"obj/{t.track_id}/{a}"] = np.array(getattr(t, a))
+        for f in t.poses_cf:
+            out[f"obj/{t.track_id}/pose/{f}"] = np.stack([t.poses_cf[f], t.poses_world[f]])
+        for j, okf in enumerate(t.keyframes):
+            for a in checkpoint._OKF_ARRAYS:
+                out[f"obj/{t.track_id}/okf/{j}/{a}"] = np.array(getattr(okf, a))
+    return out
+
+
+def run_checkpoint_resume(scene, frames, i_run: dict, device="cuda") -> dict:
+    """(k): (i)'s configuration with the fast path and async mapping: the
+    first RESUME_AT frames, save_checkpoint, a fresh System, load_checkpoint
+    (the restored tables must equal the saved ones), then the remaining
+    frames; gated on state OK after the first resumed frame, no lost frame,
+    camera ATE over all frames at most 1.5x (i)'s + 0.1 m, and the median
+    object centre error."""
+    cfg = flow_object_config(device_resident_tracking=True, async_mapping=True)
+    path = BUILD_DIR / "checkpoints" / "k.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    n = len(frames)
+    t0 = time.perf_counter()
+    patch.LAUNCHES = 0
+    first = System(cfg, device=device)
+    for k in range(RESUME_AT):
+        _track(first, frames[k], k)
+    first.wait_for_mapping()
+    t1 = time.perf_counter()
+    checkpoint.save_checkpoint(str(path), first)
+    save_ms = (time.perf_counter() - t1) * 1e3
+    saved, fast_before = _checkpoint_tables(first), first._fast_frames
+    first.shutdown()
+
+    second = System(cfg, device=device)
+    t1 = time.perf_counter()
+    checkpoint.load_checkpoint(str(path), second)
+    load_ms = (time.perf_counter() - t1) * 1e3
+    restored = _checkpoint_tables(second)
+    differ = sorted(k for k in set(saved) | set(restored)
+                    if k not in saved or k not in restored
+                    or not np.array_equal(saved[k], restored[k]))
+    states = []
+    for k in range(RESUME_AT, n):
+        _track(second, frames[k], k)
+        states.append(second.tracking_state)
+    second.wait_for_mapping()
+    launches = patch.LAUNCHES
+    traj = second.camera_trajectory()
+    lost = [e.frame_id for e in second.tracker.trajectory if e.lost]
+    objsys = second._object_system
+    obj_err = float(np.median(_object_center_errors(scene, objsys.all_tracks)))
+    out = dict(name="k: checkpoint and resume", frames=n, launches=launches,
+               ate=_ate(scene, traj), lost=lost, states=states, obj_err=obj_err,
+               fast_frames=(fast_before, second._fast_frames),
+               flow_frames={t.track_id: t.flow_tracked_frames for t in objsys.all_tracks},
+               save_ms=save_ms, load_ms=load_ms, file_bytes=path.stat().st_size)
+    second.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    obj_frames = sum(1 for k, fr in enumerate(frames)
+                     if k in {f for f, _, _ in traj} and any(d.track_id >= 0 for d in fr[2]))
+    bound = 1.5 * i_run["ate"] + 0.1
+    print(f"System (k: checkpoint after frame {RESUME_AT - 1}, resume in a fresh System) on "
+          f"{device}: {len(saved)} saved tables, {len(differ)} differing after the load "
+          f"{differ[:5]}; save {save_ms:.1f} ms, load {load_ms:.1f} ms, file {out['file_bytes']} "
+          f"bytes; states after the resumed frames {states}, lost {lost}; ATE over {n} frames "
+          f"{out['ate']:.4f} m (bound {bound:.4f}: 1.5x (i)'s {i_run['ate']:.4f} + 0.1); median "
+          f"object centre error {obj_err:.4f} m (bound {MAX_OBJ_CENTER_ERR_M}); fast-path frames "
+          f"before / after {out['fast_frames']}; flow-tracked frames {out['flow_frames']}; "
+          f"patch_gather launches {launches} over {n} frames ({obj_frames} with detections); "
+          f"{out['seconds']:.1f} s")
+    bad = []
+    if differ or not saved:
+        bad.append(f"{len(differ)} tables differ after the load")
+    if not (states[0] == TrackingState.OK and all(st == TrackingState.OK for st in states)
+            and not lost and len(traj) == n):
+        bad.append(f"states {states}, lost {lost}, {len(traj)} of {n} frames")
+    if not out["ate"] <= bound:
+        bad.append(f"ATE {out['ate']:.4f} m")
+    if not obj_err < MAX_OBJ_CENTER_ERR_M:
+        bad.append(f"object centre error {obj_err:.4f} m")
+    if device == "cuda" and launches != 4 * (n + obj_frames):
+        bad.append(f"{launches} patch_gather launches, expected {4 * (n + obj_frames)}")
+    if bad:
+        raise SystemExit("System (k): " + "; ".join(bad))
+    return out
+
+
+def run_orbvoc_loop(scene, frames, f: dict, device="cuda") -> dict:
+    """(j): (f)'s loop scene through a tree of ORBvoc's shape (k = 10,
+    L = 6, TreeVocabulary.synthesize(seed=0)) written with save_binary and
+    loaded by the System through loop.vocab_path with vocab_as_tree; gated
+    on a loop closed and ATE at most 1.5x (f)'s + 0.02 m
+    (tests/test_vocab_orbvoc_scale.py:142-152); one frame's word ids on the
+    card against the CPU path; the descent timed with CUDA events."""
+    path = BUILD_DIR / "vocab" / f"synth_k{ORBVOC_K}_L{ORBVOC_DEPTH}_s0.bin"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    synth = TreeVocabulary.synthesize(k=ORBVOC_K, depth=ORBVOC_DEPTH, seed=0, device="cpu")
+    synth.save_binary(str(path))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vocab = load_vocab(str(path), as_tree=True, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    cam = CameraConfig()
+    ext = ORBExtractor(cam.height, cam.width, ORBConfig(), device=device)
+    feats = ext(frames[0][0])
+    desc, valid = feats.desc, feats.valid
+    descent_ms = []
+    if device == "cuda":
+        for _ in range(25):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            vocab.transform_device(desc, valid)
+            end.record()
+            end.synchronize()
+            descent_ms.append(start.elapsed_time(end))
+    cpu_vocab = TreeVocabulary(vocab.node_desc, vocab.children, vocab.node_weights,
+                               vocab.is_leaf, vocab.k, vocab.depth, device="cpu")
+    words = vocab.word_ids(desc, valid)
+    words_cpu = cpu_vocab.word_ids(desc.cpu(), valid.cpu())
+    words_equal = bool(np.array_equal(words, words_cpu))
+    n_bytes, depth, n_words = vocab.device_bytes, vocab.depth, vocab.n_words
+    del synth, vocab, cpu_vocab
+
+    j = run_loop("j: loop closing through an ORBvoc-scale tree file", scene, frames,
+                 device=device, loop=LoopConfig(vocab_path=str(path), vocab_as_tree=True))
+    db = j["system"].loop_closer.db
+    postings = [len(p) for p in db._inv.values()]
+    j.update(words_equal=words_equal, device_bytes=n_bytes, load_s=load_s, write_s=write_s,
+             descent_ms=float(np.median(descent_ms)) if descent_ms else float("nan"),
+             posting_mean=float(np.mean(postings)) if postings else 0.0,
+             posting_words=len(postings), n_words=n_words)
+    bound = 1.5 * f["ate"] + 0.02
+    print(f"System (j) vocabulary: {n_words} words, depth {depth} (L + 1 after the file), "
+          f"{n_bytes} bytes of node tables on {device}, file written in {write_s:.1f} s, "
+          f"loaded in {load_s:.2f} s; descent of a keyframe's {len(valid)} feature rows "
+          f"({int(valid.sum())} valid) {j['descent_ms']:.4f} ms (median of {len(descent_ms)}, "
+          f"CUDA events); "
+          f"word ids card vs CPU equal: {words_equal}; database {type(db).__name__}, "
+          f"{len(postings)} words with postings, mean posting-list length "
+          f"{j['posting_mean']:.3f}; ATE {j['ate']:.4f} m against (f)'s {f['ate']:.4f} m (bound "
+          f"{bound:.4f}), loops closed {j['loops']}")
+    bad = []
+    if not words_equal:
+        bad.append("word ids differ between card and CPU")
+    if j["state"] != TrackingState.OK or j["loops"] < 1 or j["errors"]:
+        bad.append(f"state {j['state']}, loops {j['loops']}, failures {j['errors']}")
+    if not j["ate"] <= bound:
+        bad.append(f"ATE {j['ate']:.4f} m")
+    if not isinstance(db, SparseKeyFrameDatabase):
+        bad.append(f"database {type(db).__name__}")
+    if device == "cuda" and j["launches"] != 4 * len(frames):
+        bad.append(f"{j['launches']} patch_gather launches, expected {4 * len(frames)}")
+    if bad:
+        raise SystemExit("System (j): " + "; ".join(bad))
+    return j
+
+
+def distort_image(img: np.ndarray, cam: CameraConfig, k1: float) -> np.ndarray:
+    """Render through a distorting lens (tests/test_distortion_e2e.py:16-37):
+    sample the pinhole image at the undistorted position of every output
+    pixel, so a point whose pinhole projection is u_p appears at u_d with
+    undistort(u_d) = u_p."""
+    from scipy.ndimage import map_coordinates
+
+    h, w = img.shape
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    xn = (u - cam.cx) / cam.fx
+    yn = (v - cam.cy) / cam.fy
+    xu, yu = xn.copy(), yn.copy()
+    for _ in range(5):
+        rad = 1.0 + k1 * (xu * xu + yu * yu)
+        xu = xn / rad
+        yu = yn / rad
+    out = map_coordinates(img.astype(np.float32), [yu * cam.fy + cam.cy, xu * cam.fx + cam.cx],
+                          order=1, mode="nearest")
+    return out.astype(np.uint8)
+
+
+def run_distortion(device="cuda") -> dict:
+    """(l): tests/test_distortion_e2e.py's k1 = -0.05 sequence at full width
+    (DIST_FRAMES frames rendered through the pinhole camera, then through
+    the lens), tracked calibrated (the fast path configured: it must take no
+    frame) and uncalibrated; gated on at least DIST_FRAMES - 1 frames
+    tracked, calibrated ATE under 0.10 m, uncalibrated ATE over 1.5x the
+    calibrated (:72-87)."""
+    pin = CameraConfig()
+    scene = synthetic.make_scene(n_frames=DIST_FRAMES, n_objects=0, seed=21, camera=pin,
+                                 forward_speed=0.5, yaw_rate=0.03)
+    renderer = synthetic.SyntheticRenderer(scene)
+    t0 = time.perf_counter()
+    frames = [tuple(distort_image(x, pin, DIST_K1) for x in renderer.render(i)[:2])
+              for i in range(DIST_FRAMES)]
+    render_s = time.perf_counter() - t0
+    runs = {}
+    for calibrated in (True, False):
+        cfg = SystemConfig(camera=dataclasses.replace(pin, k1=DIST_K1 if calibrated else 0.0),
+                           tracking=TrackingConfig(min_init_stereo_features=150),
+                           loop=LoopConfig(enabled=False),
+                           runtime=RuntimeConfig(profile=True,
+                                                 device_resident_tracking=calibrated))
+        system = System(cfg, device=device)
+        patch.LAUNCHES = 0
+        for i, (left, right) in enumerate(frames):
+            system.track_stereo(left, right, timestamp=i * 0.1, frame_id=i)
+        launches = patch.LAUNCHES
+        traj = system.camera_trajectory()
+        errs = [np.linalg.norm(np.linalg.inv(T)[:3, 3] - scene.poses_world[f][:3, 3])
+                for f, T, lost in traj if not lost]
+        runs[calibrated] = dict(
+            ate=float(np.sqrt(np.mean(np.square(errs)))) if errs else float("inf"),
+            tracked=len(errs), state=system.tracking_state, fast_frames=system._fast_frames,
+            launches=launches, track_ms=float(np.median(system.frame_times)) * 1e3)
+        system.shutdown()
+    cal, raw = runs[True], runs[False]
+    print(f"System (l: k1 = {DIST_K1}) on {device}, {DIST_FRAMES} frames (distorted in "
+          f"{render_s:.1f} s on the host): calibrated ATE {cal['ate']:.4f} m (bound 0.10), "
+          f"{cal['tracked']} frames tracked, state {cal['state']}, fast-path frames "
+          f"{cal['fast_frames']} (the fast path configured, off for a distorted camera), median "
+          f"{cal['track_ms']:.3f} ms per track_stereo; uncalibrated ATE {raw['ate']:.4f} m "
+          f"(bound > {1.5 * cal['ate']:.4f}); patch_gather launches {cal['launches']} / "
+          f"{raw['launches']}")
+    bad = []
+    if not (cal["state"] == TrackingState.OK and cal["tracked"] >= DIST_FRAMES - 1
+            and cal["ate"] < 0.10):
+        bad.append(f"calibrated run: state {cal['state']}, {cal['tracked']} frames, "
+                   f"ATE {cal['ate']:.4f} m")
+    if not raw["ate"] > 1.5 * cal["ate"]:
+        bad.append(f"uncalibrated ATE {raw['ate']:.4f} m not over 1.5x the calibrated")
+    if cal["fast_frames"]:
+        bad.append(f"the fast path took {cal['fast_frames']} frames of a distorted camera")
+    if device == "cuda" and not cal["launches"] == raw["launches"] == 4 * DIST_FRAMES:
+        bad.append(f"patch_gather launches {cal['launches']} / {raw['launches']}, expected "
+                   f"{4 * DIST_FRAMES}")
+    if bad:
+        raise SystemExit("System (l): " + "; ".join(bad))
+    return dict(name="l: lens distortion", frames=2 * DIST_FRAMES,
+                launches=cal["launches"] + raw["launches"], calibrated=cal, uncalibrated=raw)
 
 
 def main() -> int:
@@ -1416,8 +1860,18 @@ def main() -> int:
 
     runs = run_systems(card)
     runs.update(run_objects(card))
+    t0 = time.perf_counter()
+    flow = run_flow_objects(card)
+    runs["i"] = flow["i"]
+    print(f"phase (i) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runs["k"] = run_checkpoint_resume(flow["scene"], flow["frames"], flow["i"])
+    print(f"phase (k) took {time.perf_counter() - t0:.1f} s")
     loop = run_loop_closing(card)
-    runs.update({k: loop[k] for k in ("f", "g", "h")})
+    runs.update({k: loop[k] for k in ("f", "g", "h", "j")})
+    t0 = time.perf_counter()
+    runs["l"] = run_distortion()
+    print(f"phase (l) took {time.perf_counter() - t0:.1f} s")
 
     left = kernel["sites"][0]
     line = {"kernels": [{

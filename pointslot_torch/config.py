@@ -5,10 +5,9 @@ read, with the same defaults: KITTI tracking's 1242x375 stereo camera, the
 1000-feature, 8-level, scale-1.2 ORB budget, the tracking policy, the
 object-SLOT knobs of mode 4, the bundle-adjustment caps and chi2 gates,
 the loop-closing policy, and the runtime knobs. A field joins with the
-slice that reads it. ``slot_mode``, ``loop.vocab_path``,
-``loop.vocab_as_tree``, ``runtime.pipeline_stages`` and the distortion
-coefficients keep the reference's defaults and exist so that the System
-can raise for what the port does not run yet.
+slice that reads it. ``slot_mode`` and ``runtime.pipeline_stages`` keep
+the reference's defaults and exist so that the System can raise for what
+the port does not run yet.
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ class CameraConfig:
     fy: float = 721.5377
     cx: float = 609.5593
     cy: float = 172.8540
-    # distortion (KITTI is rectified; the port raises for nonzero values)
+    # radial-tangential distortion (KITTI is rectified: all zero)
     k1: float = 0.0
     k2: float = 0.0
     p1: float = 0.0
@@ -58,7 +57,9 @@ class CameraConfig:
 
     @property
     def distorted(self) -> bool:
-        return any(v != 0 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
+        """Keypoints are undistorted: k1, k2, p1 or p2 nonzero. k3 is read
+        by nothing, as in the reference's System."""
+        return any(v != 0 for v in (self.k1, self.k2, self.p1, self.p2))
 
 
 @dataclass(frozen=True)
@@ -133,9 +134,16 @@ class ObjectConfig:
     # SE(3) constant-velocity priors between consecutive object keyframes
     # in the BA window; 0 = off, the reference's live surface
     ba_motion_prior_weight: float = 0.0
-    # not ported yet: the System raises for them (ROADMAP item 10b)
+    # GMS grid-statistics filtering of object brute matches (the reference's
+    # SearchByBruceMatchingWithGMS path)
     use_gms: bool = False
+    # offline-optical-flow point tracking (Virtual KITTI flow maps; the
+    # reference's SearchByOfflineOpticalFlowTracking, src/ORBmatcher.cc:2236:
+    # search radius RADIUS_FORDYNAMIC=5 px, Hamming gate
+    # TH_HIGH_FORDYNAMIC=130)
     use_offline_flow: bool = False
+    flow_match_radius: float = 5.0
+    flow_match_th_desc: int = 130
 
 
 @dataclass(frozen=True)
@@ -172,11 +180,11 @@ class LoopConfig:
     # inlier-weighted IRLS refinement of the RANSAC loop transform
     # (reference Optimizer::OptimizeSim3, src/Optimizer.cc:1684)
     refine_transform_iters: int = 4
-    # optional DBoW2 vocabulary file (not ported yet: ROADMAP item 13b);
+    # optional DBoW2 vocabulary file (.bin, .bin.gz or the text export);
     # None trains or loads the small in-repo vocabulary
     vocab_path: Optional[str] = None
-    # force the tree vocabulary + sparse inverted-index database (not
-    # ported yet: item 13b); None = auto by vocabulary size
+    # force the tree vocabulary + sparse inverted-index database for
+    # vocab_path; None = auto by vocabulary size
     vocab_as_tree: Optional[bool] = None
     # full-map BA after loop correction (the reference's detached-thread
     # GBA, src/LoopClosing.cc:648-752), after duplicate structure across

@@ -71,15 +71,21 @@ def to_numpy(result: NamedTuple) -> NamedTuple:
 def frame_record(sf, frame_id: int):
     """The port's StereoFrame (device tensors) -> a host FrameRecord, in one
     device-to-host transfer; descriptors come back as uint32 words."""
+    return frame_record_with(sf, frame_id)[0]
+
+
+def frame_record_with(sf, frame_id: int, *extra):
+    """`frame_record`, with the `extra` tensors brought to the host in the
+    same transfer: (FrameRecord, tuple of arrays)."""
     from pointslot_torch.slam.tracking import FrameRecord
 
-    xy, level, desc, angle, depth, u_right, valid = host(
-        sf.xy, sf.level, sf.desc, sf.angle, sf.depth, sf.u_right, sf.valid)
+    xy, level, desc, angle, depth, u_right, valid, *rest = host(
+        sf.xy, sf.level, sf.desc, sf.angle, sf.depth, sf.u_right, sf.valid, *extra)
     return FrameRecord(
         frame_id=frame_id, xy=xy, level=level, desc=desc.view(np.uint32),
         angle=angle, depth=depth, u_right=u_right, valid=valid,
         point_idx=np.full(xy.shape[0], -1, np.int64),
-    )
+    ), tuple(rest)
 
 
 def map_state_from_arrays(other):

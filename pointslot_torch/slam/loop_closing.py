@@ -29,8 +29,9 @@ recorded and raised by ``wait_for_gba``. A newer loop does not wait for a
 superseded solve (the reference waits for it under the map lock, which
 that solve's merge needs); the superseded merge is dropped by its epoch.
 
-Not ported (ROADMAP): the sparse tree database (item 13b) and the mesh
-branches of the essential graph and the global BA (item 15).
+A tree vocabulary (vocab/tree.py) gets the sparse inverted-index
+database; the flat one the dense database. Not ported: the mesh branches
+of the essential graph and the global BA (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from pointslot_torch.slam.map_state import MapState
 from pointslot_torch.solvers import local_ba, posegraph
 from pointslot_torch.utils.profiling import PROFILER
 from pointslot_torch.vocab.bow import BinaryVocabulary
+from pointslot_torch.vocab.tree import SparseKeyFrameDatabase, TreeVocabulary
 
 MATCH_CAP = 512      # correspondences a RANSAC takes, the first ones
 
@@ -103,9 +105,14 @@ class KeyFrameDatabase:
         return list(ids[np.argsort(-scores[ids])])
 
 
-def make_database(vocab: BinaryVocabulary, max_kfs: int) -> KeyFrameDatabase:
-    """The database for `vocab`: the dense one (the sparse inverted index of
-    tree vocabularies is ROADMAP item 13b)."""
+def make_database(vocab, max_kfs: int):
+    """The database for `vocab`: the dense (K, W) tf-idf matrix for a flat
+    vocabulary, the sparse inverted index for a tree vocabulary (bounded
+    memory at ORBvoc's ~1M words; the reference's KeyFrameDatabase design,
+    src/KeyFrameDatabase.cc). Both answer transform, add, remove, clear,
+    pair_score and query."""
+    if isinstance(vocab, TreeVocabulary):
+        return SparseKeyFrameDatabase(vocab, max_kfs)
     return KeyFrameDatabase(vocab, max_kfs)
 
 

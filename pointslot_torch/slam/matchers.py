@@ -14,6 +14,10 @@ Port of ``pointslot_tpu/slam/matchers.py``:
   reference's ``jax.vmap(brute_match)`` over objects). ``torch.argmin`` breaks ties to the first index as
   ``jnp.argmin`` does; ``lax.top_k``'s third-largest bin is a sort of the
   30 bins.
+- ``guided_match``: position-guided point->feature matching for the
+  offline-flow object path, on one table pair or on a leading batch axis
+  (the reference's ``jax.vmap(guided_match)`` over objects), with
+  ``project_and_match``'s conflict resolution.
 """
 
 from __future__ import annotations
@@ -158,3 +162,62 @@ def brute_match(
     if single:
         return BruteMatchResult(idx_b_for_a=out[0], n_matches=n[0])
     return BruteMatchResult(idx_b_for_a=out, n_matches=n)
+
+
+class GuidedMatchResult(NamedTuple):
+    point_for_feature: torch.Tensor  # (N,) or (B, N) int32 point row or -1
+    n_matches: torch.Tensor          # () or (B,) int32
+
+
+def guided_match(
+    pred_xy: torch.Tensor,     # (M, 2) or (B, M, 2) predicted pixel position per point
+    pred_ok: torch.Tensor,     # (M,) or (B, M) bool prediction available
+    pt_desc: torch.Tensor,     # (M, 8) or (B, M, 8) int32 words
+    feat_xy: torch.Tensor,     # (N, 2) or (B, N, 2)
+    feat_desc: torch.Tensor,   # (N, 8) or (B, N, 8) int32 words
+    feat_valid: torch.Tensor,  # (N,) or (B, N) bool
+    radius: float = 5.0,
+    th_desc: int = 130,
+) -> GuidedMatchResult:
+    """Each point carries an externally predicted pixel position (its last
+    observation warped by the offline optical flow); its candidates are the
+    features within `radius` px on every pyramid level, scored by Hamming
+    distance, kept at or under `th_desc`; a feature claimed by several
+    points goes to the nearest, ties to the lowest point row (the
+    reference's SearchByOfflineOpticalFlowTracking,
+    src/ORBmatcher.cc:2236-2369, as one masked distance table)."""
+    single = pred_xy.dim() == 2
+    if single:
+        pred_xy, pred_ok, pt_desc, feat_xy, feat_desc, feat_valid = (
+            x[None] for x in (pred_xy, pred_ok, pt_desc, feat_xy, feat_desc, feat_valid))
+    B, M = pred_ok.shape
+    N = feat_valid.shape[1]
+    du = pred_xy[..., 0][..., None] - feat_xy[:, None, :, 0]
+    dv = pred_xy[..., 1][..., None] - feat_xy[:, None, :, 1]
+    in_window = (torch.abs(du) <= radius) & (torch.abs(dv) <= radius)
+    mask = pred_ok[..., None] & feat_valid[:, None, :] & in_window     # (B, M, N)
+
+    dist = hamming_table_popcount(pt_desc, feat_desc)
+    dist = torch.where(mask, dist, torch.full_like(dist, _BIG))
+    best_feat = torch.argmin(dist, dim=-1)                            # (B, M) int64
+    best_dist = dist.gather(-1, best_feat[..., None])[..., 0]
+    matched = best_dist <= th_desc
+
+    # conflict resolution: best point per feature, ties to the lowest row
+    key = torch.where(matched, best_dist, torch.full_like(best_dist, _BIG))
+    big = torch.full((B, N), _BIG, dtype=key.dtype, device=key.device)
+    per_feat_best = big.scatter_reduce(1, best_feat, key, "amin")
+    winner = matched & (key == per_feat_best.gather(1, best_feat))
+    pid = torch.arange(M, dtype=torch.int32, device=key.device).expand(B, M)
+    tie_key = torch.where(winner, pid, torch.full_like(pid, M + 1))
+    per_feat_pid = torch.full((B, N), M + 1, dtype=torch.int32, device=key.device)
+    per_feat_pid = per_feat_pid.scatter_reduce(1, best_feat, tie_key, "amin")
+    winner = winner & (pid == per_feat_pid.gather(1, best_feat))
+
+    slot = torch.where(winner, best_feat, torch.full_like(best_feat, N))
+    buf = torch.full((B, N + 1), -1, dtype=torch.int32, device=key.device)
+    buf = buf.scatter(1, slot, torch.where(winner, pid, torch.full_like(pid, -1)))
+    n = winner.sum(dim=1, dtype=torch.int32)
+    if single:
+        return GuidedMatchResult(point_for_feature=buf[0, :N], n_matches=n[0])
+    return GuidedMatchResult(point_for_feature=buf[:, :N], n_matches=n)

@@ -27,9 +27,13 @@ the reference uses ``jax.vmap``; its results reach the host in one transfer
 per stage. The reference pads the object axis to a power of two only to
 bound recompiles; lanes are independent, so the port passes the real count.
 
-Not ported yet, raising ``NotImplementedError`` (ROADMAP item 10b): the GMS
-filter of the brute matches (``objects.use_gms``) and the offline-flow
-guided matching (``objects.use_offline_flow``, a ``flow`` map).
+Two options of the reference's object tracking: ``objects.use_offline_flow``
+(a ``flow`` map of the previous frame warps each point's last observation,
+and ``guided_match`` over every object at once takes over an object's
+bindings when it finds 5 pairs or more) and ``objects.use_gms`` (the
+rotation histogram off, then ``gms_filter`` drops the bindings whose cell
+pairs the grid statistics do not support, every object filtered in one
+batched call with one transfer).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from pointslot_torch.config import SystemConfig
 from pointslot_torch.convert import host, to_tensor
 from pointslot_torch.device import resolve_device
 from pointslot_torch.ops.frontend import StereoFrontend, dilate_mask_left
+from pointslot_torch.ops.gms import gms_filter
 from pointslot_torch.slam import matchers
 from pointslot_torch.slam.objects import Detection, ObjectKeyFrameRec, ObjectTrack
 from pointslot_torch.solvers import local_ba, pose_opt
@@ -75,16 +80,6 @@ def _pose_bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-def unported_object_options(cfg: SystemConfig) -> Optional[str]:
-    """What of the object configuration the port does not run yet."""
-    if cfg.objects.use_gms:
-        return "objects.use_gms (the GMS filter, ops/gms.py, ROADMAP item 10b)"
-    if cfg.objects.use_offline_flow:
-        return ("objects.use_offline_flow (offline-flow guided matching, "
-                "guided_match, ROADMAP item 10b)")
-    return None
-
-
 @dataclass
 class ObjectFrameFeatures:
     """Object-region features of the current frame, with detection labels."""
@@ -104,9 +99,6 @@ class ObjectSystem:
         """`system`: the owning System, whose device, frontend and mapping
         queue the object pipeline shares; without one it runs on `device`
         with its own frontend and maps synchronously."""
-        missing = unported_object_options(config)
-        if missing:
-            raise NotImplementedError(f"not ported yet: {missing}")
         self.cfg = config
         self.system = system
         self.device = system.device if system is not None else resolve_device(device)
@@ -144,10 +136,10 @@ class ObjectSystem:
                       timestamp, flow=None):
         """One frame's object work after camera tracking: extraction, then
         tracking of the live objects, re-init of the lost ones and init of
-        the new ones."""
-        if flow is not None:
-            raise NotImplementedError(
-                "not ported yet: offline-flow guided matching (ROADMAP item 10b)")
+        the new ones. `flow`: the (H, W, 2) forward optical flow of the
+        previous frame (pixel displacement last -> current, Virtual KITTI's
+        offline maps); it switches point tracking to the flow-guided
+        matcher (the reference's SearchByOfflineOpticalFlowTracking)."""
         if not detections:
             return
         dets = [d for d in detections if d.track_id >= 0]
@@ -172,7 +164,8 @@ class ObjectSystem:
                     to_track.append((det, fsel, track))
 
             with PROFILER.timer("obj_track"):
-                failed = self._track_objects_batched(to_track, feats, T_cw, timestamp)
+                failed = self._track_objects_batched(to_track, feats, T_cw, timestamp,
+                                                     flow=flow)
             for det, fsel, track in failed:
                 missing_t = timestamp - track.last_seen_time
                 if missing_t > self.cfg.objects.max_missing_dt:
@@ -493,10 +486,64 @@ class ObjectSystem:
             th_desc=matchers.TH_HIGH, **self._proj,
         ).point_for_feature
 
-    def _track_objects_batched(self, items, feats, T_cw, timestamp):
-        """Track every live object of the frame in batched stages: brute
-        match and projection match -> pose LM -> local-map projection ->
-        pose LM. Returns the list of (det, fsel, track) that failed."""
+    def _flow_predictions(self, items, flow):
+        """Each anchored point's last observed pixel (seen in the previous
+        frame) warped by the previous frame's forward flow: (O, P, 2)
+        positions and (O, P) flags, host arrays."""
+        P = self.cfg.objects.max_object_points
+        H_f, W_f = flow.shape[:2]
+        pred_xy = np.zeros((len(items), P, 2), np.float32)
+        pred_ok = np.zeros((len(items), P), bool)
+        for oi, (det, fsel, track) in enumerate(items):
+            anchored = track.pt_valid & (track.pt_last_frame == det.frame_id - 1)
+            rows = np.nonzero(anchored)[0]
+            if len(rows) == 0:
+                continue
+            xy = track.pt_last_xy[rows]
+            xi = np.clip(np.round(xy[:, 0]).astype(int), 0, W_f - 1)
+            yi = np.clip(np.round(xy[:, 1]).astype(int), 0, H_f - 1)
+            pred_xy[oi, rows] = xy + flow[yi, xi]
+            pred_ok[oi, rows] = True
+        return pred_xy, pred_ok
+
+    def _gms_keep(self, items, binds, feats, fsels, T_pred):
+        """GMS on the bindings of every object with 20 or more of them, each
+        point's projection through the predicted pose as the second view (the
+        reference's SearchByBruceMatchingWithGMS role), in one batched call
+        and one transfer: {object index: (the bound rows, their keep mask)}."""
+        cam = self.cfg.camera
+        lanes = []
+        for oi, (det, _, track) in enumerate(items):
+            good = np.nonzero(binds[oi] >= 0)[0]
+            if len(good) < 20:
+                continue
+            po = track.pt_pos[binds[oi][good]]
+            T = T_pred[oi].astype(np.float64)
+            pc = po @ T[:3, :3].T + T[:3, 3]
+            z = np.maximum(pc[:, 2], 1e-6)
+            proj = np.stack([cam.fx * pc[:, 0] / z + cam.cx,
+                             cam.fy * pc[:, 1] / z + cam.cy], axis=1)
+            lanes.append((oi, good, feats.xy[fsels[oi][good]], proj))
+        if not lanes:
+            return {}
+        xy_a = np.zeros((len(lanes), F_CAP, 2), np.float32)
+        xy_b = np.zeros((len(lanes), F_CAP, 2), np.float32)
+        vmask = np.zeros((len(lanes), F_CAP), bool)
+        for li, (_, good, a, b) in enumerate(lanes):
+            xy_a[li, :len(good)] = a
+            xy_b[li, :len(good)] = b
+            vmask[li, :len(good)] = True
+        d = self.device
+        keep = host(gms_filter(to_tensor(xy_a, None, d), to_tensor(xy_b, None, d),
+                               to_tensor(vmask, None, d), cam.width, cam.height))[0]
+        return {oi: (good, keep[li, :len(good)]) for li, (oi, good, _, _) in enumerate(lanes)}
+
+    def _track_objects_batched(self, items, feats, T_cw, timestamp, flow=None):
+        """Track every live object of the frame in batched stages: point
+        match (brute, and flow-guided when `flow` is given; GMS-filtered
+        under ``use_gms``) and projection match -> pose LM -> local-map
+        projection -> pose LM. Returns the list of (det, fsel, track) that
+        failed."""
         if not items:
             return []
         min_feats = self.cfg.objects.track_min_features // 2
@@ -549,17 +596,44 @@ class ObjectSystem:
 
         # stage 1: batched brute match (SearchByBruceMatching analog): ratio +
         # rotation histogram (src/ORBmatcher.cc:2043-2155); point angles are
-        # their last observed keypoint orientation
+        # their last observed keypoint orientation. Under GMS the histogram
+        # is skipped, as the reference's GMS path is ratio-only
+        # (TwoFrameObjectPointsBruceMatching, src/ORBmatcher.cc:1982)
         bind_t = matchers.brute_match(
             feats_dev[2], to_tensor(f_angle, None, d), feats_dev[3],
             tables[1], to_tensor(pt_angle, None, d), tables[2],
-            nn_ratio=0.9, th_desc=matchers.TH_HIGH, check_rotation=True,
+            nn_ratio=0.9, th_desc=matchers.TH_HIGH,
+            check_rotation=not self.cfg.objects.use_gms,
         ).idx_b_for_a
-        # the velocity-pose projection supplement is independent of the
-        # brute result: both come back in one transfer
-        pf0_t = self._project(tables, T_pred, feats_dev)
-        bind_np, pf0_np = host(bind_t, pf0_t)
+        # the velocity-pose projection supplement and the flow-guided match
+        # are independent of the brute result: all come back in one transfer
+        pending = [bind_t, self._project(tables, T_pred, feats_dev)]
+        if flow is not None:
+            pred_xy, pred_ok = self._flow_predictions(items, flow)
+            ocfg = self.cfg.objects
+            guided = matchers.guided_match(
+                to_tensor(pred_xy, None, d), to_tensor(pred_ok, None, d), tables[1],
+                feats_dev[0], feats_dev[2], feats_dev[3],
+                radius=ocfg.flow_match_radius, th_desc=ocfg.flow_match_th_desc)
+            pending += [guided.point_for_feature, guided.n_matches]
+        bind_np, pf0_np, *guided_np = host(*pending)
         binds = [bind_np[oi].astype(np.int64)[: len(fsels[oi])] for oi in range(O)]
+
+        if flow is not None:
+            # an object keeps the guided bindings when they give >= 5 pairs,
+            # else the brute ones (the reference's nMinRansacNum fallback,
+            # src/ORBmatcher.cc:2319-2334)
+            pf_g, n_g = guided_np
+            for oi in range(O):
+                if int(n_g[oi]) >= 5:
+                    binds[oi] = pf_g[oi].astype(np.int64)[: len(fsels[oi])]
+                    items[oi][2].flow_tracked_frames += 1
+                    PROFILER.count("obj_flow_takeovers")
+
+        if self.cfg.objects.use_gms:
+            for oi, (good, keep) in self._gms_keep(items, binds, feats, fsels, T_pred).items():
+                binds[oi][good[~keep]] = -1
+                PROFILER.count("obj_gms_dropped", float((~keep).sum()))
 
         # spatially-gated projection match through the velocity-predicted
         # pose supplements the brute bindings (the reference's dynamic-point
