@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive pointslot_torch's per-frame hot path, its mode-0 and mode-4
-Systems with their options, and its loop closing and relocalization on
-one CUDA card.
+"""Drive pointslot_torch's per-frame hot path, its Systems in every SLOT
+mode with their options, and its loop closing and relocalization on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -82,8 +82,36 @@ sm_90a card). Phases, in order; any failure exits non-zero:
    sequence at full width, calibrated (the fast path configured; it takes
    no frame) and uncalibrated: at least 11 of 12 frames tracked,
    calibrated ATE under 0.10 m, uncalibrated over 1.5x the calibrated;
-9. one JSON line with every kernel's numbers;
-10. last line: {"ok": true, "device": {...}}.
+9. SLOT modes 1-3 at full KITTI width (tests/test_modes.py's thresholds,
+   loop closing off), each System run several times, the first run a
+   warm-up for the times: (m) mode 1 on 12 frames of
+   tests/test_modes.py:17's scene (seed 61), (m1) with the instance mask
+   on every frame and (m2) with dynaslam_mode 1 and masks on frames 0 and
+   6 only, the ROI tracker carrying them; gated on state, no lost frame,
+   ATE under 2 % of the path, valid features inside the mask under 0.02 on
+   every frame with a mask, 4 patch-gather launches per frame; (n) mode 2
+   from select_rois on frame 0's offline box: a track with at least 6
+   poses, 4 launches per frame plus 4 per object extraction, and the ROI
+   tracker's boxes on the first 4 frames against a CPU tracker (0.5 px);
+   the median object centre error printed beside the JAX package's (0.958
+   m on the same input: mode 2's rectangle masks take background features
+   into the object, in both packages); (o) mode 3 with the bundled
+   trained detector (width 8, input 320, conf 0.3) and ReID network on 6
+   frames of tests/test_modes.py:108's scene (seed 205): state OK, at least
+   one object track, the same DeepSORT ids on every run (the ATE printed:
+   the objects feed camera tracking until DeepSORT confirms them); frame 0's
+   detections (same set and classes, boxes within 0.5 px, scores within
+   1e-3), their ReID features (1e-4) and DeepSORT's ids on every frame
+   against the port's CPU path; then the detector, ReID, DeepSORT (host)
+   and ROI-tracker stages alone and the detector's forward at three widths
+   (w8 at 320, w16 at 640, the yolov5s geometry at 640 built through
+   from_ultralytics, and that one with TF32), timed with CUDA events, with
+   launches (counted right after phase 3: torch.profiler counted too few
+   kernels in the same calls late in the script), FLOPs and the share of
+   the float32 peak;
+10. one JSON line with every kernel's numbers (and the times of the
+   detection stages, which no kernel of the port covers);
+11. last line: {"ok": true, "device": {...}}.
 
 Depth cuts, for the time limit: the mode-0 System runs 40 frames (async
 20), the mode-4 System 20; the loop scene runs whole (it needs its full
@@ -103,9 +131,14 @@ import numpy as np
 import torch
 
 from pointslot_torch import convert, kernels
-from pointslot_torch.config import (CameraConfig, LoopConfig, ObjectConfig, ORBConfig,
-                                    RuntimeConfig, SLOTMode, SystemConfig, TrackingConfig)
+from pointslot_torch.config import (CameraConfig, DetectorConfig, LoopConfig, ObjectConfig,
+                                    ORBConfig, RuntimeConfig, SLOTMode, SystemConfig,
+                                    TrackingConfig)
 from pointslot_torch.datasets import synthetic
+from pointslot_torch.detect.deepsort import DeepSort
+from pointslot_torch.detect.layers import BatchNorm, Conv, init_weights
+from pointslot_torch.detect.tracker2d import MultiTracker2D
+from pointslot_torch.detect.yolo import ConvBnSiLU, Detector, YOLOv5
 from pointslot_torch.geometry import pnp
 from pointslot_torch.ops import patch
 from pointslot_torch.ops.frontend import StereoFrontend
@@ -1816,6 +1849,529 @@ def run_distortion(device="cuda") -> dict:
                 launches=cal["launches"] + raw["launches"], calibrated=cal, uncalibrated=raw)
 
 
+# ---------------------------------------------------------------------------
+# SLOT modes 1-3: dynamic masks, manual ROIs, the online detector
+# ---------------------------------------------------------------------------
+
+MODE_SCENE = dict(n_objects=1, seed=61, forward_speed=0.7)    # tests/test_modes.py:17
+MODE_FRAMES = 12
+DYNA_MASK_FRAMES = (0, 6)        # (m2): masks given; the ROI tracker carries them between
+MAX_IN_MASK_SHARE = 0.02         # valid features inside the mask, tests/test_modes.py:66
+ONLINE_SCENE = dict(n_objects=2, seed=205, forward_speed=0.8)  # tests/test_modes.py:108
+ONLINE_FRAMES = 6
+W8_WEIGHTS = Path(__file__).resolve().parent / "pointslot_tpu/detect/weights/synthetic_yolo_w8.npz"
+SLOT_RUNS = {"m1": 3, "m2": 3, "n": 3, "o": 5}   # runs of each; the first is the warm-up
+STAGE_CALLS, STAGE_WARMUP = 25, 3
+F32_PEAK_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores (data sheet)
+TF32_PEAK_FLOPS = 495e12         # H100 SXM TF32 dense (data sheet)
+MAX_DET_BOX_GAP_PX, MAX_DET_SCORE_GAP = 0.5, 1e-3   # card vs CPU detector
+MAX_REID_GAP = 1e-4              # card vs CPU ReID features
+MAX_ROI_GAP_PX, ROI_CPU_FRAMES = 0.5, 4   # card vs CPU ROI tracker boxes
+# (n)'s median object centre error in the JAX package on the same 12 frames
+# (its System on the CPU): mode 2's rectangle masks carry background
+# features into the object and its size is a uniform prior, so the object
+# centre sits 0.5-1.1 m off in both packages
+MODE2_REFERENCE_ERR_M = 0.958
+
+
+def slot_config(mode: int, **fields) -> SystemConfig:
+    """tests/test_modes.py's _slot_cfg at full KITTI width (default camera,
+    ORB, map and BA caps): the small-object thresholds (10 / 8 / 8 / 10) and
+    350 stereo features to initialise; loop closing off; the stage timers
+    on."""
+    return SystemConfig(
+        slot_mode=mode,
+        objects=ObjectConfig(init_min_features=10, init_min_map_points=8,
+                             min_tracked_points=8, track_min_features=10),
+        tracking=TrackingConfig(min_init_stereo_features=350),
+        loop=LoopConfig(enabled=False), runtime=RuntimeConfig(profile=True), **fields)
+
+
+def online_config() -> SystemConfig:
+    """Mode 3 with the bundled trained detector (width 8, input 320, conf
+    0.3) and the bundled ReID network, as tests/test_modes.py:118-121."""
+    return slot_config(SLOTMode.AUTONOMOUS_DRIVING, detector=DetectorConfig(
+        weights_path=str(W8_WEIGHTS), input_size=320, network_width=8, conf_threshold=0.3))
+
+
+def render_slot_frames(spec: dict, n: int):
+    scene = synthetic.make_scene(n_frames=n, **spec)
+    renderer = synthetic.SyntheticRenderer(scene)
+    t0 = time.perf_counter()
+    frames = [renderer.render(i) for i in range(n)]
+    print(f"rendered {n} stereo pairs of make_scene({spec}) in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    return scene, frames, synthetic.offline_detection_rows(scene)
+
+
+def _event_ms(fn, calls: int = STAGE_CALLS, warmup: int = STAGE_WARMUP, setup=None) -> float:
+    """Median ms of `calls` calls of `fn` after `warmup`, each between two
+    CUDA events and waited for (host work in `fn` counts too); `setup()`
+    runs untimed before each call and its result is passed to `fn`."""
+    times = []
+    for k in range(warmup + calls):
+        arg = setup() if setup is not None else None
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg) if setup is not None else fn()
+        end.record()
+        end.synchronize()
+        if k >= warmup:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def drive_slot(name: str, cfg: SystemConfig, scene, frames, rows, device="cuda",
+               masks=None, rois=None, system=None, gate_ate=True) -> dict:
+    """One System over `frames` with the patch gather's count set to 0
+    just before and read just after: each call between CUDA events (on the
+    card), the in-mask share of the valid features on every frame with a
+    mask, the ROI tracker's boxes, the detector's output and DeepSORT's ids
+    per frame. `masks(i, inst)` gives frame i's instance mask (or None);
+    `rois` are registered on frame 0 with select_rois. Gated on the state,
+    no lost frame, the ATE (unless not `gate_ate`), the in-mask share and 4
+    patch-gather launches per frame plus 4 per object extraction."""
+    system = system or System(cfg, device=device)
+    out = dict(name=name, frames=len(frames), boxes=[], ids=[], raw=[], in_mask={},
+               in_true_mask={}, event_ms=[], obj_extractions=0)
+    objsys = system._object_system
+    if objsys is not None:
+        extract = objsys._extract_object_features
+
+        def counted(*args):
+            out["obj_extractions"] += 1
+            return extract(*args)
+
+        objsys._extract_object_features = counted
+    if system.detector is not None:
+        run = system.detector.run
+        system.detector.run = lambda img: out["raw"].append(run(img)) or out["raw"][-1]
+    if system.mot is not None:
+        update = system.mot.update
+
+        def recorded(dets, image=None):
+            tracks = update(dets, image)
+            out["ids"].append(sorted(t["track_id"] for t in tracks))
+            return tracks
+
+        system.mot.update = recorded
+    cuda = device == "cuda"
+    PROFILER.reset()
+    patch.LAUNCHES = 0
+    for i, (left, right, inst) in enumerate(frames):
+        if rois and i == 0:
+            system.select_rois(left, rois)
+        mask = masks(i, inst) if masks is not None else None
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        frame = system.track_stereo(left, right, timestamp=i * 0.1, frame_id=i,
+                                    instance_mask=mask)
+        if cuda:
+            end.record()
+            end.synchronize()
+            out["event_ms"].append(start.elapsed_time(end))
+        xy = frame.xy[frame.valid]
+        yi = np.clip(np.round(xy[:, 1]).astype(int), 0, inst.shape[0] - 1)
+        xi = np.clip(np.round(xy[:, 0]).astype(int), 0, inst.shape[1] - 1)
+        out["in_true_mask"][i] = round(float((inst[yi, xi] != 0).mean()), 4) if len(xy) else 0.0
+        if mask is not None:
+            out["in_mask"][i] = float((mask[yi, xi] != 0).mean()) if len(xy) else 0.0
+        if system.roi_tracker is not None:
+            out["boxes"].append([t.bbox.copy() for t in system.roi_tracker.tracks if t.alive])
+    system.wait_for_mapping()
+    launches = patch.LAUNCHES
+    traj = system.camera_trajectory()
+    lost = [e.frame_id for e in system.tracker.trajectory if e.lost]
+    n = len(frames)
+    path_m = scene.poses_world[n - 1][:3, 3] - scene.poses_world[0][:3, 3]
+    system.shutdown()
+    out.update(system=system, traj=traj, state=system.tracking_state, lost=lost,
+               ate=_ate(scene, traj), path_m=float(np.linalg.norm(path_m)), launches=launches,
+               host_ms=[t * 1e3 for t in system.frame_times],
+               stages=PROFILER.summary()["stages"],
+               tracks=list(objsys.all_tracks) if objsys is not None else [])
+    expect = 4 * (n + out["obj_extractions"])
+    print(f"System ({name}) on {device}, {n} frames: state {out['state']}, lost {lost}, ATE "
+          f"{out['ate']:.4f} m over {out['path_m']:.2f} m, keyframes {system.map.n_keyframes()}, "
+          f"object tracks {[(t.track_id, len(t.poses_cf)) for t in out['tracks']]}, in-mask "
+          f"share of valid features {out['in_mask']}, patch_gather launches {launches} "
+          f"({launches / n:g}/frame; {out['obj_extractions']} object extractions), "
+          f"track_stereo ms (CUDA events) {[round(t, 1) for t in out['event_ms']]}")
+    if not (out["state"] == TrackingState.OK and not lost and len(traj) == n):
+        raise SystemExit(f"System ({name}): state {out['state']}, lost {lost}")
+    if gate_ate and not out["ate"] < MAX_ATE_SHARE * out["path_m"]:
+        raise SystemExit(f"System ({name}): ATE {out['ate']:.4f} m over {out['path_m']:.2f} m")
+    if any(v >= MAX_IN_MASK_SHARE for v in out["in_mask"].values()):
+        raise SystemExit(f"System ({name}): valid features inside the mask {out['in_mask']}")
+    if cuda and launches != expect:
+        raise SystemExit(f"System ({name}): expected {expect} patch_gather launches, got "
+                         f"{launches}")
+    return out
+
+
+def _timed_runs(label: str, runs) -> dict:
+    """ms per track_stereo over the runs after the first (the warm-up):
+    the median of the CUDA-event times and of the host clock."""
+    timed = [t for r in runs[1:] for t in r["event_ms"]]
+    host = [t for r in runs[1:] for t in r["host_ms"]]
+    ms = float(np.median(timed)) if timed else float("nan")
+    print(f"System ({label}): median {ms:.3f} ms per track_stereo (CUDA events, {len(timed)} "
+          f"calls of {len(runs) - 1} runs after a warm-up run; host clock "
+          f"{float(np.median(host)):.3f} ms)")
+    return dict(track_ms=ms, calls=len(timed), host_ms=float(np.median(host)))
+
+
+def run_mode1(device="cuda") -> dict:
+    """(m): mode 1 on MODE_FRAMES frames of tests/test_modes.py:17's scene at
+    full width, (m1) the true instance mask on every frame, (m2)
+    dynaslam_mode 1 with masks on DYNA_MASK_FRAMES only and the ROI tracker
+    carrying the regions in between."""
+    scene, frames, _ = render_slot_frames(MODE_SCENE, MODE_FRAMES)
+    out = {}
+    for key, fields, masks in (
+            ("m1", {}, lambda i, inst: inst),
+            ("m2", {"dynaslam_mode": 1},
+             lambda i, inst: inst if i in DYNA_MASK_FRAMES else None)):
+        runs = [drive_slot(f"{key}: mode 1{', dynaslam_mode 1' if fields else ''}",
+                           slot_config(SLOTMode.DYNAMIC_SLAM, **fields), scene, frames, None,
+                           device=device, masks=masks) for _ in range(SLOT_RUNS[key])]
+        r = runs[-1]
+        if key == "m2":
+            carried = [k for k, b in enumerate(r["boxes"]) if b and k not in DYNA_MASK_FRAMES]
+            print(f"System (m2): the ROI tracker carried boxes on frames {carried}: "
+                  f"{[[np.round(b, 1).tolist() for b in bs] for bs in r['boxes']]}; valid "
+                  f"features inside the true instance mask per frame {r['in_true_mask']} "
+                  f"(not gated on carried frames: the carried box is a rectangle)")
+            between = set(range(DYNA_MASK_FRAMES[0] + 1, DYNA_MASK_FRAMES[1]))
+            if not between <= set(carried):
+                raise SystemExit(f"System (m2): the ROI tracker carried the mask on frames "
+                                 f"{carried}, not on every frame of {sorted(between)}")
+        out[key] = dict(r, **_timed_runs(key, runs), runs=len(runs))
+    return out
+
+
+def run_mode2(device="cuda") -> dict:
+    """(n): mode 2 on MODE_FRAMES frames of the same scene, the offline box
+    of frame 0 registered with select_rois (tests/test_modes.py:69-87):
+    gated on a track with at least MODE_FRAMES // 2 poses; the median
+    object centre error printed beside the JAX package's on the same input
+    (MODE2_REFERENCE_ERR_M); the ROI tracker's boxes on the first
+    ROI_CPU_FRAMES frames against a tracker on the port's CPU path."""
+    scene, frames, rows = render_slot_frames(MODE_SCENE, MODE_FRAMES)
+    r0 = rows[(rows[:, 0] == 0) & (rows[:, 1] >= 0)][0]
+    roi, gt_id = tuple(r0[5:9]), int(r0[1])
+    runs = [drive_slot("n: mode 2, manual ROI", slot_config(SLOTMode.MANUAL_TRACKING), scene,
+                       frames, rows, device=device, rois=[roi]) for _ in range(SLOT_RUNS["n"])]
+    r = runs[-1]
+    best = max(r["tracks"], key=lambda t: len(t.poses_cf), default=None)
+    errs = []
+    if best is not None:
+        gt = next(o for o in scene.objects if o.track_id == gt_id)
+        for f, T_co in best.poses_cf.items():
+            gt_T_co = np.linalg.inv(scene.poses_world[f]) @ gt.poses_world[f]
+            errs.append(float(np.linalg.norm(T_co[:3, 3] - gt_T_co[:3, 3])))
+    err = float(np.median(errs)) if errs else float("inf")
+    print(f"System (n): best track {best and best.track_id} with "
+          f"{best and len(best.poses_cf)} poses (gate >= {MODE_FRAMES // 2}), object BA calls "
+          f"{r['system']._object_system.ba_calls}; median object centre error {err:.4f} m "
+          f"(per frame {[round(e, 3) for e in errs]}); the {MAX_OBJ_CENTER_ERR_M} m bound is "
+          f"{'met' if err < MAX_OBJ_CENTER_ERR_M else 'NOT met, not gated'}: the JAX package "
+          f"gives {MODE2_REFERENCE_ERR_M} m on the same input (ROADMAP Queue 3)")
+    if best is None or len(best.poses_cf) < MODE_FRAMES // 2:
+        raise SystemExit("System (n): the manual ROI produced no track of "
+                         f"{MODE_FRAMES // 2} poses")
+    cpu = MultiTracker2D(device="cpu")
+    cpu.add(frames[0][0], roi)
+    gaps = []
+    for k in range(ROI_CPU_FRAMES):
+        cpu.update(frames[k][0])   # the System updates from frame 0, after select_rois
+        want = [t.bbox for t in cpu.tracks if t.alive]
+        got = r["boxes"][k]
+        if len(got) != len(want):
+            raise SystemExit(f"System (n): frame {k}: {len(got)} ROI boxes on the card, "
+                             f"{len(want)} on the CPU path")
+        gaps += [float(np.abs(g - w).max()) for g, w in zip(got, want)]
+    print(f"System (n) ROI tracker, card vs CPU path over frames 0-{ROI_CPU_FRAMES - 1}: box "
+          f"gaps {gaps} px (bound {MAX_ROI_GAP_PX})")
+    if not max(gaps) <= MAX_ROI_GAP_PX:
+        raise SystemExit("System (n): the ROI tracker's card and CPU boxes disagree")
+    return dict(n=dict(r, **_timed_runs("n", runs), runs=len(runs), obj_err=err,
+                       roi_gap=max(gaps)), roi=roi, frames=frames)
+
+
+def compare_online_with_cpu(r: dict, frames) -> dict:
+    """(o) on the card against the port's CPU path: frame 0's detector output
+    (the same valid set and classes, boxes within MAX_DET_BOX_GAP_PX, scores
+    within MAX_DET_SCORE_GAP), the ReID features of those boxes (within
+    MAX_REID_GAP), and DeepSORT's ids on every frame, from a CPU detector
+    and a CPU DeepSORT with a CPU ReID network over the same images."""
+    cpu = System(online_config(), device="cpu")   # the same detection stages, built alike
+    cpu_det, cpu_emb = cpu.detector, cpu.mot.embedder
+    want = cpu_det.run(frames[0][0])
+    got = r["raw"][0]
+    ok = [d["class_id"] for d in got] == [d["class_id"] for d in want] and len(want) >= 1
+    box_gap = max((float(np.abs(g["bbox"] - w["bbox"]).max()) for g, w in zip(got, want)),
+                  default=0.0)
+    score_gap = max((abs(g["score"] - w["score"]) for g, w in zip(got, want)), default=0.0)
+    boxes = np.array([d["bbox"] for d in want])
+    card_emb = r["system"].mot.embedder
+    reid_gap = float(np.abs(card_emb(frames[0][0], boxes) - cpu_emb(frames[0][0], boxes)).max())
+    mot = cpu.mot
+    cpu_ids = [sorted(t["track_id"] for t in mot.update(cpu_det.run(f[0]), f[0]))
+               for f in frames]
+    print(f"System (o) card vs CPU path: frame 0 detections card {len(got)} / CPU {len(want)} "
+          f"(classes {[d['class_id'] for d in got]}), box gap {box_gap:.3e} px (bound "
+          f"{MAX_DET_BOX_GAP_PX}), score gap {score_gap:.3e} (bound {MAX_DET_SCORE_GAP}); ReID "
+          f"features of {len(boxes)} boxes gap {reid_gap:.3e} (bound {MAX_REID_GAP}); DeepSORT "
+          f"ids card {r['ids']} / CPU {cpu_ids}")
+    if not (ok and box_gap <= MAX_DET_BOX_GAP_PX and score_gap <= MAX_DET_SCORE_GAP
+            and reid_gap <= MAX_REID_GAP and cpu_ids == r["ids"]):
+        raise SystemExit("System (o): the card and the CPU path disagree")
+    return dict(det_box_gap=box_gap, det_score_gap=score_gap, reid_gap=reid_gap)
+
+
+def run_mode3(device="cuda") -> dict:
+    """(o): mode 3 with the bundled trained detector and ReID network on
+    ONLINE_FRAMES frames of tests/test_modes.py:108's scene; gated on the
+    state and at least one object track (:123-130), the ATE printed (the
+    moving objects feed the camera's map until DeepSORT confirms them on
+    the third frame); then against the CPU path."""
+    scene, frames, _ = render_slot_frames(ONLINE_SCENE, ONLINE_FRAMES)
+    runs = [drive_slot("o: mode 3, trained detector + DeepSORT + ReID", online_config(), scene,
+                       frames, None, device=device, gate_ate=False)
+            for _ in range(SLOT_RUNS["o"])]
+    r = runs[-1]
+    print(f"System (o): detections per frame {[len(d) for d in r['raw']]}, DeepSORT ids "
+          f"{r['ids']}, stage medians (host clock, ms) "
+          f"{ {k: round(v['median_ms'], 3) for k, v in r['stages'].items()} }")
+    if not r["tracks"]:
+        raise SystemExit("System (o): the online network produced no object track")
+    if any(x["ids"] != r["ids"] for x in runs):
+        raise SystemExit(f"System (o): DeepSORT ids differ between runs: "
+                         f"{[x['ids'] for x in runs]}")
+    gaps = compare_online_with_cpu(r, frames)
+    return dict(o=dict(r, **_timed_runs("o", runs), **gaps, runs=len(runs)), frames=frames)
+
+
+def _seeded_ultralytics_state_dict(seed: int = 0) -> dict:
+    """A yolov5s state dict in the ultralytics key layout (model.<N>.conv.
+    weight, ...), with seeded weights and BN statistics: the port's seeded
+    YOLOv5(width=32, torch_pad=True) written out through the converter's
+    own layer map."""
+    from pointslot_torch.detect import convert as yconvert
+
+    model = init_weights(YOLOv5(width=32, torch_pad=True), seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mean.copy_(torch.randn(m.mean.shape, generator=g) * 0.1)
+            m.var.copy_(torch.rand(m.var.shape, generator=g) + 0.5)
+    sd = model.state_dict()
+    out = {}
+
+    def conv_bn(prefix, path):
+        out[f"{prefix}.conv.weight"] = sd[f"{path}.Conv_0.weight"]
+        for a, b in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                     ("running_var", "var")):
+            out[f"{prefix}.bn.{a}"] = sd[f"{path}.BatchNorm_0.{b}"]
+
+    for idx, name, n_bn in yconvert._LAYER_MAP:
+        prefix = f"model.{idx}"
+        if name.startswith("ConvBnSiLU"):
+            conv_bn(prefix, name)
+            continue
+        for cv in range(2 if name.startswith("SPPF") else 3):
+            conv_bn(f"{prefix}.cv{cv + 1}", f"{name}.ConvBnSiLU_{cv}")
+        for i in range(n_bn or 0):
+            for cv in range(2):
+                conv_bn(f"{prefix}.m.{i}.cv{cv + 1}", f"{name}.Bottleneck_{i}.ConvBnSiLU_{cv}")
+    for idx, sub, name in yconvert._HEADS:
+        out[f"model.{idx}.{sub}.weight"] = sd[f"{name}.weight"]
+        out[f"model.{idx}.{sub}.bias"] = sd[f"{name}.bias"]
+    return out
+
+
+def _conv_flops(model, x) -> int:
+    """FLOPs of the convolutions of one forward (2 x MACs), from the
+    shapes; the elementwise BN, SiLU, pools and adds are left out."""
+    flops = [0]
+
+    def hook(mod, inp, out):
+        w = mod.conv.weight if isinstance(mod, ConvBnSiLU) else mod.weight
+        flops[0] += 2 * out.numel() * w[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, ConvBnSiLU) or (isinstance(m, Conv) and m.bias is not None)]
+    with torch.no_grad():
+        model(x)
+    for h in handles:
+        h.remove()
+    return flops[0]
+
+
+def forward_detectors() -> list:
+    """(label, Detector) on the card at three widths: the bundled w8 at
+    320, DetectorConfig()'s default (width 16 at 640, seeded) and the
+    yolov5s geometry (width 32, torch padding, at 640, built through
+    from_ultralytics from a seeded state dict), each with its input."""
+    dets = [("w8 @ 320 (bundled)", Detector(input_size=320, width=8, device="cuda")),
+            ("w16 @ 640 (DetectorConfig default, seeded)", Detector(device="cuda")),
+            ("w32 @ 640 (yolov5s geometry, torch_pad, from_ultralytics)",
+             Detector.from_ultralytics(_seeded_ultralytics_state_dict(), device="cuda"))]
+    dets[0][1].load_npz(str(W8_WEIGHTS))
+    return [(label, det, torch.rand((1, 3, det.input_size, det.input_size),
+                                    generator=torch.Generator().manual_seed(det.input_size)).cuda())
+            for label, det in dets]
+
+
+def count_detection_launches(forwards) -> dict:
+    """Kernel launches per call of the detection stages and of the
+    `forwards`, counted early in the process (torch.profiler counted too
+    few kernels in the same calls late in this script: the ReID stage none
+    at all), on the inputs of the timed calls: frame 0 of (o)'s scene
+    through the w8 detector and the ReID network on its boxes, DeepSORT's
+    update on them (host numpy), the ROI tracker on (n)'s frame 1 from
+    frame 0's offline box."""
+    system = System(online_config(), device="cuda")   # built as (o)'s
+    det, emb = system.detector, system.mot.embedder
+    img = synthetic.SyntheticRenderer(synthetic.make_scene(
+        n_frames=ONLINE_FRAMES, **ONLINE_SCENE)).render(0)[0]
+    raw = det.run(img)
+    boxes = np.array([d["bbox"] for d in raw]).reshape(-1, 4)
+    feats = emb(img, boxes)
+    mot = DeepSort(system.cfg.detector, embedder=lambda image, b: feats)
+    scene = synthetic.make_scene(n_frames=MODE_FRAMES, **MODE_SCENE)
+    renderer = synthetic.SyntheticRenderer(scene)
+    rows = synthetic.offline_detection_rows(scene)
+    tracker = MultiTracker2D(device="cuda")
+    tracker.add(renderer.render(0)[0], tuple(rows[(rows[:, 0] == 0) & (rows[:, 1] >= 0)][0][5:9]))
+    frame1 = renderer.render(1)[0]
+    out = {"detector": _count_kernels(lambda: det.run(img)),
+           "reid": _count_kernels(lambda: emb(img, boxes)),
+           "deepsort (host)": _count_kernels(lambda: mot.update(raw, img)),
+           "roi tracker": _count_kernels(lambda: tracker.update(frame1))}
+    for label, d, x in forwards:
+        out[label] = _count_kernels(lambda: d.heads(x))
+    system.shutdown()
+    print(f"kernel launches per call, counted early (torch.profiler): {out}")
+    return out
+
+
+def detector_forwards(forwards, launches: dict) -> list:
+    """The detector's forward alone on the card at the three widths of
+    `forwards`, each timed per call with CUDA events (median of STAGE_CALLS
+    after STAGE_WARMUP, the host's launches included) and as device time
+    (a CUDA graph of STAGE_CALLS calls), with its launches (counted early),
+    conv FLOPs, weight bytes and the share of the float32 peak that the
+    device time reaches; the yolov5s forward again with TF32 convolutions,
+    for what TF32 would save."""
+    rows = []
+    for label, det, x in forwards:
+        s = det.input_size
+        fwd = lambda: det.heads(x)   # noqa: E731
+        ms = _event_ms(fwd)
+        device_ms = _graph_ms(fwd, reps=STAGE_CALLS)
+        flops = _conv_flops(det.model, x)
+        wbytes = 4 * sum(v.numel() for v in det.model.state_dict().values())
+        row = dict(label=label, input=s, width=det.model.width, ms=ms, device_ms=device_ms,
+                   launches=launches[label], gflops=flops / 1e9, weight_bytes=wbytes,
+                   f32_share=flops / F32_PEAK_FLOPS * 1e3 / device_ms)
+        if det.model.width == 32:
+            want = fwd()
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                row["tf32_ms"] = _event_ms(fwd)
+                row["tf32_device_ms"] = _graph_ms(fwd, reps=STAGE_CALLS)
+                got = fwd()
+                row["tf32_rel_gap"] = max(float((g - w).abs().max() / w.abs().max())
+                                          for g, w in zip(got, want))
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+        rows.append(row)
+        print(f"detector forward {label}: {ms:.4f} ms per call (CUDA events, median of "
+              f"{STAGE_CALLS}), {device_ms:.4f} ms of device time (a CUDA graph of "
+              f"{STAGE_CALLS} calls), {row['launches']} kernel launches, {row['gflops']:.3f} GFLOP "
+              f"of convolutions, {wbytes} weight bytes; the device time is "
+              f"{row['f32_share']:.2%} of the {F32_PEAK_FLOPS / 1e12:g} TFLOP/s float32 peak"
+              + (f"; with TF32 convolutions {row['tf32_ms']:.4f} ms per call, "
+                 f"{row['tf32_device_ms']:.4f} ms of device time (heads within "
+                 f"{row['tf32_rel_gap']:.2e} of max|head|)" if "tf32_ms" in row else ""))
+    return rows
+
+
+def time_online_stages(o: dict, n: dict, frames_o, frames_n, launches: dict) -> dict:
+    """The stages of modes 2-3 alone on the card, each the median of
+    STAGE_CALLS calls after STAGE_WARMUP (CUDA events around the call,
+    host work included), with its kernel launches (counted early): the
+    detector's run on frame 0, the ReID network on frame 0's detections,
+    DeepSORT's update (host; the ReID features precomputed, on a fresh copy
+    of the tracker state each call) and the ROI tracker's update."""
+    import copy
+
+    system = o["system"]
+    det, mot = system.detector, system.mot
+    img = frames_o[0][0]
+    run = lambda: Detector.run(det, img)   # noqa: E731 (not the System's recording wrapper)
+    raw = run()
+    boxes = np.array([d["bbox"] for d in raw]).reshape(-1, 4)
+    emb = mot.embedder
+    feats = emb(img, boxes)
+    out = {}
+    out["detector"] = _event_ms(run)
+    out["reid"] = _event_ms(lambda: emb(img, boxes))
+    embedder, mot.embedder = mot.embedder, None
+    state = copy.deepcopy(mot)
+    mot.embedder = embedder
+
+    def fresh():
+        m = copy.deepcopy(state)
+        m.embedder = lambda image, b: feats
+        return m
+
+    # the class's update: the System's instance carries a recording wrapper
+    update = DeepSort.update
+    out["deepsort (host)"] = _event_ms(lambda m: update(m, raw, img), setup=fresh)
+    tracker = MultiTracker2D(device="cuda")
+    tracker.add(frames_n[0][0], n["roi"])
+    out["roi tracker"] = _event_ms(lambda: tracker.update(frames_n[1][0]))
+    print("stage times on the card (CUDA events, median of "
+          f"{STAGE_CALLS} after {STAGE_WARMUP}; kernel launches per call, counted early): "
+          + ", ".join(f"{k} {ms:.4f} ms / {launches[k]} launches" for k, ms in out.items())
+          + f"; {len(raw)} detections, {len(boxes)} ReID crops")
+    return {k: dict(ms=ms, launches=launches[k]) for k, ms in out.items()}
+
+
+def run_slot_modes(card: str, device="cuda", forwards=None, launches=None) -> dict:
+    """Phases (m), (n), (o), then (on the card) the stage times and the
+    detector `forwards` with the `launches` count_detection_launches
+    counted for them early in the process."""
+    t0 = time.perf_counter()
+    out = run_mode1(device)
+    print(f"phase (m) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n = run_mode2(device)
+    out["n"] = n["n"]
+    print(f"phase (n) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    o = run_mode3(device)
+    out["o"] = o["o"]
+    print(f"phase (o) took {time.perf_counter() - t0:.1f} s")
+    if device == "cuda":
+        t0 = time.perf_counter()
+        out["stages"] = time_online_stages(out["o"], dict(n["n"], roi=n["roi"]), o["frames"],
+                                           n["frames"], launches)
+        out["forwards"] = detector_forwards(forwards, launches)
+        print(f"stage and forward timings took {time.perf_counter() - t0:.1f} s")
+    print(f"modes 1-3 summary on {card}: median ms per track_stereo (CUDA events) "
+          + ", ".join(f"({k}) {out[k]['track_ms']:.3f} over {out[k]['calls']} calls"
+                      for k in ("m1", "m2", "n", "o"))
+          + "; patch_gather launches per frame "
+          + ", ".join(f"({k}) {out[k]['launches'] / out[k]['frames']:g}"
+                      for k in ("m1", "m2", "n", "o")))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1838,6 +2394,8 @@ def main() -> int:
     full = FusedFrameStep(cfg, device="cuda")
     seq = Sequence(full, cam, n_frames=WARMUP_FRAMES + TIMED_FRAMES + 1)
     kernel = check_patch_gather(seq)
+    forwards = forward_detectors()
+    detection_launches = count_detection_launches(forwards)
 
     patch.LAUNCHES = 0
     patch.CANVAS_BUILDS = 0
@@ -1872,6 +2430,8 @@ def main() -> int:
     t0 = time.perf_counter()
     runs["l"] = run_distortion()
     print(f"phase (l) took {time.perf_counter() - t0:.1f} s")
+    slot = run_slot_modes(card, forwards=forwards, launches=detection_launches)
+    runs.update({k: slot[k] for k in ("m1", "m2", "n", "o")})
 
     left = kernel["sites"][0]
     line = {"kernels": [{
@@ -1889,6 +2449,7 @@ def main() -> int:
         "frames_system": {k: r["frames"] for k, r in runs.items()},
         "earlier_canvas": {"ms": kernel["canvas_ms"], "cold_ms": kernel["canvas_cold_ms"],
                            "launches": kernel["canvas_launches"]},
+        "outside_kernels": {"stages": slot["stages"], "forwards": slot["forwards"]},
     }]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

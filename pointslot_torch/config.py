@@ -3,18 +3,18 @@
 A copy of the fields of ``pointslot_tpu/config.py`` that the ported slices
 read, with the same defaults: KITTI tracking's 1242x375 stereo camera, the
 1000-feature, 8-level, scale-1.2 ORB budget, the tracking policy, the
-object-SLOT knobs of mode 4, the bundle-adjustment caps and chi2 gates,
-the loop-closing policy, and the runtime knobs. A field joins with the
-slice that reads it. ``slot_mode`` and ``runtime.pipeline_stages`` keep
-the reference's defaults and exist so that the System can raise for what
-the port does not run yet.
+object-SLOT knobs, the online detector and DeepSORT of mode 3, the
+bundle-adjustment caps and chi2 gates, the loop-closing policy, and the
+runtime knobs. A field joins with the slice that reads it.
+``runtime.pipeline_stages`` keeps the reference's default and exists so
+that the System can raise for what the port does not run yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 
 class SLOTMode:
@@ -101,7 +101,7 @@ class TrackingConfig:
 @dataclass(frozen=True)
 class ObjectConfig:
     """Object-SLOT knobs (reference Parameters.cc object block): the fields
-    the mode-4 object path reads."""
+    the object path of modes 2-4 reads."""
 
     # BRIEF table of the object frontend, a second extractor beside the
     # camera's (the reference runs its own ORB on object masks,
@@ -109,6 +109,7 @@ class ObjectConfig:
     brief_pattern: str = "gaussian"
     max_object_points: int = 512        # per-object landmark capacity
     select_tracked_obj_id: int = -1     # -1 = every track
+    narrow_bbox_px: int = 10            # shrink 2D bbox before masking (modes 2, 3)
     max_missing_dt: float = 0.5         # occlusion bridge time (s)
     manual_point_max_distance: bool = False
     in_obj_frame_point_max_distance: float = 3.0
@@ -116,6 +117,8 @@ class ObjectConfig:
     init_min_map_points: int = 17       # EnInitMapObjectPointsNum
     min_tracked_points: int = 15        # EnMinTrackedMOPsNUM
     track_min_features: int = 30        # EnTrackObjectMinFeatureNum
+    # the (w, h, l) size prior of detections without one (modes 2, 3)
+    uniform_scale: Tuple[float, float, float] = (1.6, 1.5, 3.0)
     set_init_position_by_points: bool = True
     # dynamic/static discrimination (src/DetectionObject.cc:189,
     # src/MapObject.cc:414-448)
@@ -144,6 +147,26 @@ class ObjectConfig:
     use_offline_flow: bool = False
     flow_match_radius: float = 5.0
     flow_match_th_desc: int = 130
+
+
+@dataclass(frozen=True)
+class DetectorConfig:
+    """Online detection head (mode 3; reference YOLOdetector + deepsort)."""
+
+    conf_threshold: float = 0.4
+    iou_threshold: float = 0.5
+    input_size: int = 640
+    network_width: int = 16      # base channel count of the YOLO network
+    keep_classes: Tuple[int, ...] = (2, 7)   # car, truck (reference Frame.cc:2557)
+    weights_path: Optional[str] = None
+    reid_weights_path: Optional[str] = None
+    reid_feature_dim: int = 128
+    # DeepSORT association (reference deepsort/src/tracker.cpp)
+    max_cosine_distance: float = 0.2
+    nn_budget: int = 100
+    max_iou_distance: float = 0.7
+    max_age: int = 30
+    n_init: int = 3
 
 
 @dataclass(frozen=True)
@@ -219,10 +242,13 @@ class RuntimeConfig:
 @dataclass(frozen=True)
 class SystemConfig:
     slot_mode: int = SLOTMode.SLAM
+    # mode 1: 0 = a mask every frame, 1 = masks carried by the ROI tracker
+    dynaslam_mode: int = 0
     camera: CameraConfig = field(default_factory=CameraConfig)
     orb: ORBConfig = field(default_factory=ORBConfig)
     tracking: TrackingConfig = field(default_factory=TrackingConfig)
     objects: ObjectConfig = field(default_factory=ObjectConfig)
+    detector: DetectorConfig = field(default_factory=DetectorConfig)
     ba: BAConfig = field(default_factory=BAConfig)
     loop: LoopConfig = field(default_factory=LoopConfig)
     runtime: RuntimeConfig = field(default_factory=RuntimeConfig)

@@ -163,3 +163,95 @@ def object_system_from_arrays(other, config, device="cuda"):
     o._pending_okfs = dict(other._pending_okfs)
     o.ba_calls = other.ba_calls
     return o
+
+
+def flat_flax(variables) -> dict:
+    """Flax variables ({"params": ..., "batch_stats": ...}, nested, numpy
+    or jax arrays) or their flat npz dict -> {"params/a/b/leaf": array}."""
+    flat = {}
+
+    def walk(prefix, value):
+        if isinstance(value, dict) or hasattr(value, "items"):
+            for k, v in value.items():
+                walk(f"{prefix}/{k}" if prefix else str(k), v)
+        else:
+            flat[prefix] = np.asarray(value)
+
+    walk("", variables)
+    return flat
+
+
+def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
+    """Copy flax variables into `module`, whose children carry flax's
+    names (detect/layers.py): kernels HWIO -> OIHW (a dense kernel is
+    transposed), BN scale and bias from "params", mean and var from
+    "batch_stats". Raises KeyError on a tensor missing or left over and
+    ValueError on a shape that differs."""
+    flat = flat_flax(variables)
+    used = set()
+    state = {}
+    for key, ref in module.state_dict().items():
+        *path, leaf = key.split(".")
+        path = "/".join(path)
+        if leaf == "weight":
+            src = f"params/{path}/kernel"
+        elif leaf in ("mean", "var"):
+            src = f"batch_stats/{path}/{leaf}"
+        else:
+            src = f"params/{path}/{leaf}"
+        if src not in flat:
+            raise KeyError(f"flax variables are missing '{src}'")
+        value = flat[src]
+        if leaf == "weight":
+            value = value.T if value.ndim == 2 else np.transpose(value, (3, 2, 0, 1))
+        if tuple(value.shape) != tuple(ref.shape):
+            raise ValueError(f"'{src}' has shape {value.shape}, the module wants {tuple(ref.shape)}")
+        state[key] = torch.from_numpy(np.array(value, np.float32))
+        used.add(src)
+    extra = sorted(set(flat) - used)
+    if extra:
+        raise KeyError(f"flax variables hold tensors the module lacks: {extra[:4]}")
+    module.load_state_dict(state)
+    return module
+
+
+def flax_from_module(module: torch.nn.Module) -> dict:
+    """The inverse of `load_flax`: the module's weights as the flat
+    "params/..." / "batch_stats/..." dict the JAX package saves."""
+    out = {}
+    for key, value in module.state_dict().items():
+        *path, leaf = key.split(".")
+        path = "/".join(path)
+        value = value.detach().cpu().numpy()
+        if leaf == "weight":
+            value = value.T if value.ndim == 2 else np.transpose(value, (2, 3, 1, 0))
+            out[f"params/{path}/kernel"] = np.ascontiguousarray(value)
+        elif leaf in ("mean", "var"):
+            out[f"batch_stats/{path}/{leaf}"] = value
+        else:
+            out[f"params/{path}/{leaf}"] = value
+    return out
+
+
+def detector_from_flax(variables, torch_pad: bool = False):
+    """The port's YOLOv5 holding the JAX package's detector variables (its
+    ``Detector.variables``, or the flat npz of ``save_npz``). Width, depth
+    and class count are read from the shapes."""
+    from pointslot_torch.detect.yolo import YOLOv5
+
+    flat = flat_flax(variables)
+    width = flat["params/ConvBnSiLU_0/Conv_0/kernel"].shape[-1]
+    depth = sum(1 for k in flat if k.startswith("params/C3_0/Bottleneck_")
+                and k.endswith("ConvBnSiLU_0/Conv_0/kernel"))
+    n_classes = flat["params/Conv_0/kernel"].shape[-1] // 3 - 5
+    return load_flax(YOLOv5(width=width, depth=depth, n_classes=n_classes,
+                            torch_pad=torch_pad), flat)
+
+
+def reid_from_flax(variables):
+    """The port's ReIDNet holding the JAX package's ReID variables (its
+    ``ReIDEmbedder.variables``, or the flat npz of train_reid.save_npz)."""
+    from pointslot_torch.detect.reid import ReIDNet
+
+    flat = flat_flax(variables)
+    return load_flax(ReIDNet(features=flat["params/Dense_0/kernel"].shape[-1]), flat)

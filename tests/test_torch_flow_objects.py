@@ -16,6 +16,10 @@ frame's flow to the object system.
   ``flow_tracked_frames``, and the frame's object poses within 1e-3 m (the
   step bound of tests/test_torch_object_system.py). The flow-guided
   takeovers and the GMS drops of each step are counted and must both occur.
+  The step turns the port's PROFILER on for itself and restores its flag:
+  a port System built earlier in the process (with ``runtime.profile``
+  off) must not silence the counts. A replay of the busy steps after such
+  a System counts what the run counted.
 - The port's own System over the 8 frames meets tests/test_flow_tracking.py's
   gates (a track with flow_tracked_frames >= 3, object position RMSE under
   0.5 m) and keeps the JAX System's tracks.
@@ -119,26 +123,47 @@ def _drive(system, scene, detection_cls):
     return system
 
 
+def _port_step(state, cfg, inputs):
+    """One port process_frame from a copy of `state` (an ObjectSystem of
+    either package), with the port's PROFILER on for the step and its flag
+    restored after, so that the counters do not hang on which System the
+    process built last; returns (port ObjectSystem, the step's counters)."""
+    frame, left, right, detections, instance_mask, timestamp, flow = inputs
+    port = convert.object_system_from_arrays(state, cfg, device="cpu")
+    enabled = PROFILER.enabled
+    PROFILER.enabled = True
+    try:
+        PROFILER.reset()
+        port.process_frame(SimpleNamespace(T_cw=np.array(frame.T_cw)), left, right,
+                           convert.copy_object_state(detections), instance_mask, timestamp,
+                           flow=flow)
+        counters = dict(PROFILER.counters)
+    finally:
+        PROFILER.enabled = enabled
+    return port, counters
+
+
 class _StepMirror:
     """The port's ObjectSystem from a copy of the JAX one's state, one
     process_frame per frame with the same inputs (flow included), before
-    the JAX one; records (frame, port, JAX copy, port counters)."""
+    the JAX one; records (frame, port, JAX copy, port counters, had flow)
+    and, for a replay, each frame's state before the step and its inputs."""
 
     def __init__(self, jobj):
         self.steps = []
-        cfg = _configs(config)
+        self.replays = []
+        self.cfg = cfg = _configs(config)
         jprocess = jobj.process_frame
 
         def process_frame(frame, left, right, detections, instance_mask, timestamp, flow=None):
-            port = convert.object_system_from_arrays(jobj, cfg, device="cpu")
-            PROFILER.reset()
-            port.process_frame(SimpleNamespace(T_cw=np.array(frame.T_cw)), left, right,
-                               convert.copy_object_state(detections), instance_mask, timestamp,
-                               flow=flow)
-            counters = dict(PROFILER.counters)
+            inputs = (SimpleNamespace(T_cw=np.array(frame.T_cw)), left, right,
+                      convert.copy_object_state(detections), instance_mask, timestamp, flow)
+            before = convert.object_system_from_arrays(jobj, cfg, device="cpu")
+            port, counters = _port_step(jobj, cfg, inputs)
             jprocess(frame, left, right, detections, instance_mask, timestamp, flow=flow)
             self.steps.append((frame.frame_id, port, convert.object_system_from_arrays(
                 jobj, cfg, device="cpu"), counters, flow is not None))
+            self.replays.append((before, inputs))
 
         jobj.process_frame = process_frame
 
@@ -187,3 +212,23 @@ def test_port_flow_system_meets_flow_gates(scene, runs):
     errs = [np.linalg.norm(T_wo[:3, 3] - gt[t.track_id].poses_world[f][:3, 3])
             for t in objsys.all_tracks for f, T_wo in t.poses_world.items()]
     assert errs and float(np.sqrt(np.mean(np.square(errs)))) < 0.5
+
+
+def test_step_counters_do_not_hang_on_an_earlier_system(runs):
+    """The mirror's counters after a port System built with profile=False
+    (the order of tests/test_torch_object_system.py then this file in one
+    process): the replayed steps count what they counted in the run."""
+    _, _, mirror = runs
+    System(_configs(config).replace(runtime=config.RuntimeConfig(profile=False)),
+           device="cpu")
+    assert not PROFILER.enabled
+    busy = [k for k, (*_, c, _) in enumerate(mirror.steps)
+            if c.get("obj_flow_takeovers", 0) or c.get("obj_gms_dropped", 0)]
+    assert busy
+    for k in busy[:2]:
+        before, inputs = mirror.replays[k]
+        _, counters = _port_step(before, mirror.cfg, inputs)
+        want = mirror.steps[k][3]
+        for name in ("obj_flow_takeovers", "obj_gms_dropped"):
+            assert counters.get(name, 0) == want.get(name, 0), (k, name)
+    assert not PROFILER.enabled

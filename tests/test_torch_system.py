@@ -360,8 +360,8 @@ def test_fast_path_probes_again_under_the_map_lock(scene):
 
 
 # The ids are the ones these cases had while every option below raised;
-# the options of ROADMAP items 10b, 13b and 14a have since been ported and
-# now build.
+# the options of ROADMAP items 10b, 13b and 14a-14d have since been ported
+# and now build.
 @pytest.mark.parametrize("change, item", [
     (dict(loop=config.LoopConfig(vocab_path="ORBvoc.txt")), "builds"),
     (dict(loop=config.LoopConfig(vocab_as_tree=True)), "builds"),
@@ -369,12 +369,15 @@ def test_fast_path_probes_again_under_the_map_lock(scene):
      "builds"),
     (dict(slot_mode=config.SLOTMode.OFFLINE,
           objects=config.ObjectConfig(use_offline_flow=True)), "builds"),
-    (dict(slot_mode=config.SLOTMode.MANUAL_TRACKING), "item 14"),
-    (dict(slot_mode=config.SLOTMode.DYNAMIC_SLAM), "item 14"),
+    (dict(slot_mode=config.SLOTMode.MANUAL_TRACKING), "builds"),
+    (dict(slot_mode=config.SLOTMode.DYNAMIC_SLAM), "builds"),
     (dict(camera=config.CameraConfig(**CAM, k1=0.01)), "builds"),
     (dict(runtime=config.RuntimeConfig(pipeline_stages=True)), "item 15"),
+    (dict(slot_mode=config.SLOTMode.AUTONOMOUS_DRIVING), "builds"),
+    (dict(slot_mode=config.SLOTMode.DYNAMIC_SLAM, dynaslam_mode=1), "builds"),
 ], ids=["change0-item 13b", "change1-item 13b", "change2-item 10b", "change3-item 10b",
-        "change4-item 14", "change5-item 14", "change6-item 14", "change7-item 15"])
+        "change4-item 14", "change5-item 14", "change6-item 14", "change7-item 15",
+        "change8-item 14d", "change9-item 14b"])
 def test_unported_configurations_raise(change, item, tmp_path):
     """What the port does not run yet raises, naming its ROADMAP item,
     instead of running without it; what an item has since ported builds
