@@ -109,9 +109,30 @@ sm_90a card). Phases, in order; any failure exits non-zero:
    launches (counted right after phase 3: torch.profiler counted too few
    kernels in the same calls late in the script), FLOPs and the share of
    the float32 peak;
-10. one JSON line with every kernel's numbers (and the times of the
-   detection stages, which no kernel of the port covers);
-11. last line: {"ok": true, "device": {...}}.
+10. (p) training and two-view: (p1) three steps of the detector's
+   YoloTrainer (from the bundled w8 weights, input 320, batch 4, the
+   recipe's first frames) and of the ReID training (from the bundled
+   weights, a seeded head, batch 64), each from the card's state redone
+   on the port's CPU path (cuDNN deterministic for the card's step): the
+   loss within 1e-4 relative, gradients, BN statistics and parameters at
+   tests/test_torch_train*.py's bounds; whether a card step repeats bit
+   for bit under default algorithms is printed; each step's ms (CUDA
+   events), host part, device ms and launches (counted early), FLOPs and
+   share of the float32 peak; (p2) detect/train_synthetic.py's recipe,
+   whole (300 steps) from the seeded initialisation: the mean loss of the
+   last 20 steps under 0.8 x that of the first 20 (tests/test_yolo_train
+   .py:50), the saved npz loaded back to bit-equal heads, (o)'s 6 frames
+   run once with it and the recall of the offline boxes printed beside the
+   bundled weights' (a training-set recall: seed 205 is a recipe scene);
+   (p3) the ReID training whole at its defaults (64 identities, 800 steps,
+   batch 64): the held-out identity margin of tests/test_reid.py:32-48
+   above 0.25, the bundled weights' printed beside it; (p4)
+   reconstruct_two_view on tests/test_aux.py:25's scene (K = 128), card
+   against the CPU path on the same draws, that test's gates, the first
+   call timed apart from the warm median;
+11. one JSON line with every kernel's numbers (and the times of the
+   detection stages and of phase (p), which no kernel of the port covers);
+12. last line: {"ok": true, "device": {...}}.
 
 Depth cuts, for the time limit: the mode-0 System runs 40 frames (async
 20), the mode-4 System 20; the loop scene runs whole (it needs its full
@@ -119,6 +140,7 @@ circle to close); none was cut further by the later phases' addition.
 Needs no network; builds into build/kernels/.
 """
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -2193,8 +2215,10 @@ def _seeded_ultralytics_state_dict(seed: int = 0) -> dict:
 
 
 def _conv_flops(model, x) -> int:
-    """FLOPs of the convolutions of one forward (2 x MACs), from the
-    shapes; the elementwise BN, SiLU, pools and adds are left out."""
+    """FLOPs of the convolutions and dense layers of one forward (2 x
+    MACs), from the shapes; the elementwise BN, SiLU, ReLU, pools and adds
+    are left out. (ConvBnSiLU runs its Conv's weight directly, so the hook
+    sits on the block; a Conv called as a module is counted by its own.)"""
     flops = [0]
 
     def hook(mod, inp, out):
@@ -2202,7 +2226,7 @@ def _conv_flops(model, x) -> int:
         flops[0] += 2 * out.numel() * w[0].numel()
 
     handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, ConvBnSiLU) or (isinstance(m, Conv) and m.bias is not None)]
+               if isinstance(m, (ConvBnSiLU, Conv, torch.nn.Linear))]
     with torch.no_grad():
         model(x)
     for h in handles:
@@ -2355,7 +2379,7 @@ def run_slot_modes(card: str, device="cuda", forwards=None, launches=None) -> di
     print(f"phase (n) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     o = run_mode3(device)
-    out["o"] = o["o"]
+    out["o"], out["frames_o"] = o["o"], o["frames"]
     print(f"phase (o) took {time.perf_counter() - t0:.1f} s")
     if device == "cuda":
         t0 = time.perf_counter()
@@ -2369,6 +2393,445 @@ def run_slot_modes(card: str, device="cuda", forwards=None, launches=None) -> di
           + "; patch_gather launches per frame "
           + ", ".join(f"({k}) {out[k]['launches'] / out[k]['frames']:g}"
                       for k in ("m1", "m2", "n", "o")))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (p): the detector's and the ReID network's training, and the two-view
+# initialiser
+# ---------------------------------------------------------------------------
+
+TRAIN_SIZE, TRAIN_STEPS_COMPARED = 320, 3   # (p1): input, steps held against the CPU
+MAX_TRAIN_LOSS_REL = 1e-4        # card vs CPU step loss
+# card vs CPU gradients, of each tensor's largest (tests/test_torch_train.py,
+# tests/test_torch_train_reid.py: ReLU kinks in the ReID network)
+YOLO_GRAD_REL, REID_GRAD_REL = 1e-3, 3e-2
+MAX_TRAIN_STATS_GAP = 1e-5       # BN running statistics
+TRAIN_PARAM_ATOL = 1e-6          # the Adam rule's floor
+RECIPE_LOSS_FALL = 0.8           # tests/test_yolo_train.py:50, over the first and last 20 steps
+RECIPE_WINDOW = 20
+MIN_REID_MARGIN = 0.25           # tests/test_reid.py:46
+REID_HELD_OUT = dict(n_ids=8, seed=101, crops=64, rng=0)   # tests/test_reid.py:34-36
+RECALL_IOU = 0.5
+LOW_CONF = 0.1                   # (p2)'s second recall: the recipe's 300 steps score lower
+TWO_VIEW_N, TWO_VIEW_OUTLIERS, TWO_VIEW_K = 200, 20, 128   # tests/test_aux.py:25-47
+# card vs CPU on the same draws: cuSOLVER's float32 eigen- and singular-value
+# solves land farther from the exact pose than LAPACK's (on an NVIDIA H100 80GB
+# HBM3 at 700 W: rotation error 1.81e-04 on the card, 1.4e-06 on the CPU path,
+# T21 gap 4.97e-04)
+MAX_TWO_VIEW_T21_GAP = 5e-3
+TRAIN_PROFILE_STEPS = 3
+
+
+def _flat_grads(model) -> dict:
+    return {k: p.grad.detach().cpu().numpy() for k, p in model.named_parameters()}
+
+
+def _network(trainer):
+    """The trained module of a YoloTrainer or a ReIDTrainer."""
+    return trainer.model if hasattr(trainer, "model") else trainer.net
+
+
+def _copy_training_state(src, dst) -> None:
+    """dst (a trainer on another device) takes src's weights, running
+    statistics, softmax head and optimizer state."""
+    _network(dst).load_state_dict(_network(src).state_dict())
+    if hasattr(src, "head"):
+        with torch.no_grad():
+            dst.head.copy_(src.head)
+    dst.opt.load_state_dict(copy.deepcopy(src.opt.state_dict()))
+
+
+def _held_step_gaps(label: str, card_tr, cpu_tr, step, grad_rel: float, lr: float) -> dict:
+    """One step on the card and one on the CPU path from the same state
+    (cuDNN deterministic for the card's), held to the CPU's: the loss within
+    MAX_TRAIN_LOSS_REL, each gradient within `grad_rel` of its tensor's
+    largest, the BN statistics within MAX_TRAIN_STATS_GAP, and each
+    parameter under the Adam rule of tests/test_torch_train.py: within
+    TRAIN_PARAM_ATOL + 2 lr min(1, 2 max(d, 1e-6) / |g|) for a gradient gap d."""
+    _copy_training_state(card_tr, cpu_tr)
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_card = float(step(card_tr))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    loss_cpu = float(step(cpu_tr))
+    net_card, net_cpu = _network(card_tr), _network(cpu_tr)
+    g_card, g_cpu = _flat_grads(net_card), _flat_grads(net_cpu)
+    p_card = {k: v.detach().cpu().numpy() for k, v in net_card.state_dict().items()}
+    p_cpu = {k: v.detach().numpy() for k, v in net_cpu.state_dict().items()}
+    if hasattr(card_tr, "head"):
+        g_card["head"], g_cpu["head"] = card_tr.head.grad.cpu().numpy(), cpu_tr.head.grad.numpy()
+        p_card["head"], p_cpu["head"] = card_tr.head.detach().cpu().numpy(), \
+            cpu_tr.head.detach().numpy()
+    out = dict(loss_rel=abs(loss_card - loss_cpu) / abs(loss_cpu), grad_rel=0.0, stats_gap=0.0,
+               adam_ratio=0.0)
+    for k, want in p_cpu.items():
+        gap = np.abs(p_card[k] - want)
+        if k not in g_cpu:
+            out["stats_gap"] = max(out["stats_gap"], float(gap.max()))
+            continue
+        g_gap = np.abs(g_card[k] - g_cpu[k])
+        out["grad_rel"] = max(out["grad_rel"], float(g_gap.max() / np.abs(g_cpu[k]).max()))
+        bound = TRAIN_PARAM_ATOL + 2 * lr * np.minimum(
+            1.0, 2 * np.maximum(g_gap, 1e-6) / np.maximum(np.abs(g_cpu[k]), 1e-30))
+        out["adam_ratio"] = max(out["adam_ratio"], float((gap / bound).max()))
+    ok = (out["loss_rel"] <= MAX_TRAIN_LOSS_REL and out["grad_rel"] <= grad_rel
+          and out["stats_gap"] <= MAX_TRAIN_STATS_GAP and out["adam_ratio"] <= 1.0)
+    print(f"({label}) card vs CPU step: loss {loss_card:.6f} / {loss_cpu:.6f} (rel gap "
+          f"{out['loss_rel']:.2e}, bound {MAX_TRAIN_LOSS_REL}), gradients {out['grad_rel']:.2e} "
+          f"of a tensor's largest (bound {grad_rel}), BN statistics {out['stats_gap']:.2e} (bound "
+          f"{MAX_TRAIN_STATS_GAP}), parameters at {out['adam_ratio']:.3f} of the Adam rule's bound")
+    if not ok:
+        raise SystemExit(f"({label}): the card's training step disagrees with the CPU path's")
+    return out
+
+
+def _step_repeats(card_tr, step) -> bool:
+    """Whether one card step (default cuDNN algorithms) from a state gives
+    the same bits twice."""
+    state = copy.deepcopy(card_tr.opt.state_dict())
+    net = _network(card_tr)
+    weights = {k: v.clone() for k, v in net.state_dict().items()}
+    head = card_tr.head.detach().clone() if hasattr(card_tr, "head") else None
+    outs = []
+    for _ in range(2):
+        net.load_state_dict(weights)
+        if head is not None:
+            with torch.no_grad():
+                card_tr.head.copy_(head)
+        card_tr.opt.load_state_dict(copy.deepcopy(state))
+        step(card_tr)
+        outs.append([v.clone() for v in net.state_dict().values()])
+    return all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def recipe_batch(imgs: torch.Tensor, frame_boxes, size: int = TRAIN_SIZE):
+    """(p1)'s fixed batch: the recipe's first BATCH staged frames and their
+    boxes, as the recipe builds a batch (no flip)."""
+    from pointslot_torch.detect import train_synthetic as recipe
+
+    boxes = np.zeros((recipe.BATCH, recipe.MAX_BOXES, 4), np.float32)
+    classes = np.full((recipe.BATCH, recipe.MAX_BOXES), recipe.CAR, np.int64)
+    n_boxes = np.zeros(recipe.BATCH, np.int64)
+    for b in range(recipe.BATCH):
+        bb = frame_boxes[b][:recipe.MAX_BOXES]
+        boxes[b, :len(bb)] = bb
+        n_boxes[b] = len(bb)
+    return imgs[:recipe.BATCH].cpu(), (boxes, classes, n_boxes)
+
+
+def _yolo_step(images_cpu, labels):
+    """One YoloTrainer step on a fixed batch, on the trainer's device."""
+    def step(trainer):
+        return trainer.step_tensors(images_cpu.to(trainer.device), trainer.targets(*labels))[0]
+    return step
+
+
+def _reid_step(crops, ids):
+    """One ReIDTrainer step on fixed crops, on the trainer's device."""
+    x, y = torch.from_numpy(crops).permute(0, 3, 1, 2), torch.from_numpy(ids.astype(np.int64))
+
+    def step(trainer):
+        return trainer.step_tensors(x.to(trainer.device), y.to(trainer.device))[0]
+    return step
+
+
+def _train_flops(model, x) -> int:
+    """FLOPs of one training step's convolutions and dense layers: the
+    forward's (2 x MACs, _conv_flops) three times (forward, input gradient,
+    weight gradient); the elementwise work and the optimizer are left out."""
+    was = model.training
+    model.eval()
+    try:
+        return 3 * _conv_flops(model, x)
+    finally:
+        model.train(was)
+
+
+def profile_training_steps(imgs_cpu=None) -> dict:
+    """Kernel launches and device busy ms per training step (torch.profiler,
+    TRAIN_PROFILE_STEPS steps after one), counted early in the process as
+    count_detection_launches does: the detector (bundled w8, input 320,
+    batch 4, random images with the recipe's box count) and the ReID network
+    (batch 64)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointslot_torch.detect import reid as reid_mod
+    from pointslot_torch.detect import train_reid
+
+    g = torch.Generator().manual_seed(5)
+    yolo = convert.yolo_trainer_from_flax(dict(np.load(W8_WEIGHTS)), input_size=TRAIN_SIZE,
+                                          lr=2e-3, device="cuda")
+    images = torch.rand((4, 3, TRAIN_SIZE, TRAIN_SIZE), generator=g)
+    boxes = np.tile(np.array([[[100, 150, 60, 40], [220, 160, 90, 50]]], np.float32), (4, 1, 1))
+    labels = (boxes, np.full((4, 2), 2, np.int64), np.full(4, 2, np.int64))
+    net = convert.reid_from_flax(dict(np.load(reid_mod.ReIDEmbedder.bundled_weights_path())))
+    reid = train_reid.ReIDTrainer(net, torch.randn((128, 64), generator=g) * 0.05, 1e-3, "cuda")
+    crops, ids = train_reid.sample_crops(train_reid.make_identity_bank(64, 0),
+                                         np.random.default_rng(0), 64)
+    out = {}
+    for name, tr, step in (("detector", yolo, _yolo_step(images, labels)),
+                           ("reid", reid, _reid_step(crops, ids))):
+        step(tr)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRAIN_PROFILE_STEPS):
+                step(tr)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        out[name] = dict(launches=len(kernels) / TRAIN_PROFILE_STEPS,
+                         device_ms=sum(e.device_time_total for e in kernels) / 1e3
+                         / TRAIN_PROFILE_STEPS)
+    print(f"training steps, counted early (torch.profiler, {TRAIN_PROFILE_STEPS} steps): "
+          + ", ".join(f"{k} {v['launches']:g} launches and {v['device_ms']:.4f} ms of device "
+                      f"time per step" for k, v in out.items()))
+    return out
+
+
+def _iou(a, b) -> float:
+    """IoU of two (x, y, w, h) boxes."""
+    ix = max(0.0, min(a[0] + a[2], b[0] + b[2]) - max(a[0], b[0]))
+    iy = max(0.0, min(a[1] + a[3], b[1] + b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    return inter / max(a[2] * a[3] + b[2] * b[3] - inter, 1e-9)
+
+
+def _recall(dets_per_frame, rows) -> float:
+    """Share of the offline boxes of the frames matched by a detection at
+    IoU >= RECALL_IOU."""
+    hit = total = 0
+    for i, dets in enumerate(dets_per_frame):
+        for r in rows[(rows[:, 0] == i) & (rows[:, 1] >= 0)]:
+            total += 1
+            hit += any(_iou(d["bbox"], r[5:9]) >= RECALL_IOU for d in dets)
+    return hit / max(total, 1)
+
+
+def _reid_margin(net) -> float:
+    """tests/test_reid.py:32-48's identity margin of `net` on the held-out
+    bank: mean cosine of same-identity pairs less that of different ones."""
+    from pointslot_torch.detect import train_reid
+
+    h = REID_HELD_OUT
+    crops, ids = train_reid.sample_crops(train_reid.make_identity_bank(h["n_ids"], h["seed"]),
+                                         np.random.default_rng(h["rng"]), h["crops"])
+    dev = next(net.parameters()).device
+    with torch.no_grad():
+        feats = net.eval()(torch.from_numpy(crops).permute(0, 3, 1, 2).to(dev)).cpu().numpy()
+    sim = feats @ feats.T
+    same = ids[:, None] == ids[None, :]
+    off = ~np.eye(len(ids), dtype=bool)
+    return float(sim[same & off].mean() - sim[~same].mean())
+
+
+def _time_steps(step_fn, host_fn, calls: int = 20, warmup: int = 3) -> dict:
+    """ms per training step (CUDA events around the whole step with its
+    host work, median of `calls` after `warmup`) and the host part's ms
+    (host clock, median)."""
+    ms = _event_ms(step_fn, calls=calls, warmup=warmup)
+    host = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        host_fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    return dict(ms=ms, host_ms=float(np.median(host)))
+
+
+def two_view_scene():
+    """tests/test_aux.py:25-37's correspondences (its rng fixture, seed 42)
+    and the true T21."""
+    rng = np.random.default_rng(42)
+    n = TWO_VIEW_N
+    pts = np.stack([rng.uniform(-4, 4, n), rng.uniform(-2, 2, n), rng.uniform(4, 20, n)], 1)
+    from pointslot_torch.geometry import se3
+
+    T21 = se3.se3_exp(torch.tensor([0.6, 0.05, 0.05, 0.01, 0.08, 0.01])).numpy()
+    p1 = pts[:, :2] / pts[:, 2:3]
+    pc2 = pts @ T21[:3, :3].T + T21[:3, 3]
+    p2 = pc2[:, :2] / pc2[:, 2:3]
+    p2[:TWO_VIEW_OUTLIERS] += rng.uniform(0.05, 0.2, size=(TWO_VIEW_OUTLIERS, 2))
+    return p1.astype(np.float32), p2.astype(np.float32), T21
+
+
+def run_two_view(device="cuda") -> dict:
+    """(p4): reconstruct_two_view on tests/test_aux.py's scene, K = 128: the
+    first call timed apart (cuSOLVER's start-up), then the warm median
+    (CUDA events); card against the CPU path on the same draws (ok,
+    used_homography, inliers equal, T21 within MAX_TWO_VIEW_T21_GAP); gated
+    on that test's rules: ok, cos(t) > 0.99, rotation error < 0.02."""
+    from pointslot_torch.geometry import two_view
+
+    p1, p2, T21 = two_view_scene()
+    args = [torch.from_numpy(p1), torch.from_numpy(p2), torch.ones(TWO_VIEW_N, dtype=torch.bool)]
+    idx_h, idx_f = two_view.draw_index_sets(args[2], TWO_VIEW_K, 2)
+    dev = [a.to(device) for a in args]
+    solve = lambda: two_view.reconstruct_two_view_from_sets(*dev, idx_h, idx_f)  # noqa: E731
+    t0 = time.perf_counter()
+    res = solve()
+    bool(res.ok)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    warm_ms = _event_ms(solve) if device == "cuda" else float("nan")
+    cpu = two_view.reconstruct_two_view_from_sets(*args, idx_h, idx_f)
+    t_est = res.T21[:3, 3].cpu().numpy()
+    cos = float(np.dot(t_est, T21[:3, 3]) / (np.linalg.norm(t_est) * np.linalg.norm(T21[:3, 3])))
+    rot = float(np.abs(res.T21[:3, :3].cpu().numpy() @ T21[:3, :3].T - np.eye(3)).max())
+    same = (bool(res.ok) == bool(cpu.ok)
+            and bool(res.used_homography) == bool(cpu.used_homography)
+            and torch.equal(res.inliers.cpu(), cpu.inliers))
+    gap = float((res.T21.cpu() - cpu.T21).abs().max())
+    print(f"(p4) two-view on {device}: ok {bool(res.ok)}, homography {bool(res.used_homography)}, "
+          f"{int(res.inliers.sum())} inliers ({int(res.inliers[:TWO_VIEW_OUTLIERS].sum())} of the "
+          f"{TWO_VIEW_OUTLIERS} outliers), cos(t) {cos:.6f} (gate > 0.99), rotation error "
+          f"{rot:.2e} (gate < 0.02); card vs CPU path on the same draws: flags and inliers "
+          f"{'equal' if same else 'DIFFER'}, T21 gap {gap:.2e} (bound {MAX_TWO_VIEW_T21_GAP}); "
+          f"first call {first_ms:.1f} ms (host clock), warm {warm_ms:.4f} ms (CUDA events, "
+          f"median of {STAGE_CALLS})")
+    if not (bool(res.ok) and cos > 0.99 and rot < 0.02):
+        raise SystemExit("(p4): two-view reconstruction misses tests/test_aux.py's gates")
+    if not (same and gap <= MAX_TWO_VIEW_T21_GAP):
+        raise SystemExit("(p4): the card's two-view reconstruction disagrees with the CPU path's")
+    return dict(first_ms=first_ms, ms=warm_ms, t21_gap=gap, inliers=int(res.inliers.sum()))
+
+
+def run_training(card: str, frames_o, train_profile: dict, device="cuda",
+                 recipe_steps=None, reid_steps=None) -> dict:
+    """Phase (p): (p1) card against CPU training steps of the detector and
+    the ReID network, (p2) the detector recipe whole on the card, (p3) the
+    ReID training whole on the card, (p4) two-view. `recipe_steps` and
+    `reid_steps` cut (p2) and (p3) for a rehearsal on the CPU."""
+    from pointslot_torch.detect import reid as reid_mod
+    from pointslot_torch.detect import train as train_mod
+    from pointslot_torch.detect import train_reid
+    from pointslot_torch.detect import train_synthetic as recipe
+
+    out = {}
+    t0 = time.perf_counter()
+    imgs, frame_boxes = recipe.training_set(TRAIN_SIZE, device)
+    out["render_s"] = time.perf_counter() - t0
+    print(f"(p) the recipe's training set: {len(frame_boxes)} frames rendered on host threads, "
+          f"letterboxed and staged on {device} in {out['render_s']:.1f} s")
+
+    # (p1) card vs CPU, from the bundled weights, on one fixed batch
+    images_cpu, labels = recipe_batch(imgs, frame_boxes)
+    bundled = dict(np.load(W8_WEIGHTS))
+    yolo_card = convert.yolo_trainer_from_flax(bundled, TRAIN_SIZE, recipe.LR, device)
+    yolo_cpu = convert.yolo_trainer_from_flax(bundled, TRAIN_SIZE, recipe.LR, "cpu")
+    ystep = _yolo_step(images_cpu, labels)
+    crops, ids = train_reid.sample_crops(train_reid.make_identity_bank(64, 0),
+                                         np.random.default_rng(0), 64)
+    head = torch.randn((128, 64), generator=torch.Generator().manual_seed(0)) * 0.05
+    rnet = lambda: convert.reid_from_flax(  # noqa: E731
+        dict(np.load(reid_mod.ReIDEmbedder.bundled_weights_path())))
+    reid_card = train_reid.ReIDTrainer(rnet(), head, 1e-3, device)
+    reid_cpu = train_reid.ReIDTrainer(rnet(), head, 1e-3, "cpu")
+    rstep = _reid_step(crops, ids)
+    held = {"detector": [], "reid": []}
+    for _ in range(TRAIN_STEPS_COMPARED):
+        held["detector"].append(_held_step_gaps("p1 detector", yolo_card, yolo_cpu, ystep,
+                                                YOLO_GRAD_REL, recipe.LR))
+        held["reid"].append(_held_step_gaps("p1 ReID", reid_card, reid_cpu, rstep,
+                                            REID_GRAD_REL, 1e-3))
+    repeats = {"detector": _step_repeats(yolo_card, ystep), "reid": _step_repeats(reid_card, rstep)}
+    print(f"(p1) a card step from one state twice, default cuDNN algorithms: bit-equal "
+          f"{repeats} (a finding, not gated)")
+    bundled_margin = _reid_margin(rnet())
+    del reid_cpu
+
+    # the step's numbers: ms (CUDA events), the host part, FLOPs
+    x = images_cpu.to(device)
+    targets = lambda: yolo_card.targets(*labels)  # noqa: E731
+    timing = {}
+    if device == "cuda":
+        timing["detector"] = _time_steps(lambda: yolo_card.step_tensors(x, targets()),
+                                         lambda: train_mod.build_targets(*labels, TRAIN_SIZE))
+        bank = train_reid.make_identity_bank(64, 0)
+        rng = np.random.default_rng(1)
+        timing["reid"] = _time_steps(lambda: reid_card.step(*train_reid.sample_crops(
+            bank, rng, 64)), lambda: train_reid.sample_crops(bank, rng, 64))
+        flops = {"detector": _train_flops(yolo_card.model, x),
+                 "reid": _train_flops(reid_card.net, torch.from_numpy(crops).permute(
+                     0, 3, 1, 2).to(device))}
+        for k, t in timing.items():
+            t.update(train_profile[k], flops=flops[k])
+            t["f32_share"] = flops[k] / F32_PEAK_FLOPS * 1e3 / t["device_ms"]
+            t["host_share"] = t["host_ms"] / t["ms"]
+            print(f"(p) {k} training step on {card}: {t['ms']:.4f} ms per step (CUDA events, "
+                  f"median of 20, host work included), of it {t['host_ms']:.4f} ms on the host "
+                  f"({'build_targets' if k == 'detector' else 'sample_crops'}, "
+                  f"{t['host_share']:.1%}); {t['device_ms']:.4f} ms of device time and "
+                  f"{t['launches']:g} kernel launches per step (counted early); "
+                  f"{t['flops'] / 1e9:.3f} GFLOP per step, {t['f32_share']:.2%} of the "
+                  f"{F32_PEAK_FLOPS / 1e12:g} TFLOP/s float32 peak")
+    del yolo_card, reid_card, yolo_cpu
+    out.update(held=held, repeats=repeats, timing=timing)
+
+    # (p2) the recipe, whole, from the port's seeded initialisation
+    steps = recipe_steps or 300
+    trainer = train_mod.YoloTrainer(input_size=TRAIN_SIZE, width=recipe.WIDTH, lr=recipe.LR,
+                                    device=device)
+    t0 = time.perf_counter()
+    losses = recipe.train(trainer, imgs, frame_boxes, steps, log_every=100)
+    out["recipe_s"] = time.perf_counter() - t0
+    w = min(RECIPE_WINDOW, len(losses) // 2)
+    first, last = float(losses[:w].mean()), float(losses[-w:].mean())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = BUILD_DIR / "synthetic_yolo_w8_card.npz"
+    trainer.save_npz(str(path))
+    det = Detector(input_size=TRAIN_SIZE, width=recipe.WIDTH, conf=0.3, device=device)
+    det.load_npz(str(path))
+    probe = torch.rand((1, 3, TRAIN_SIZE, TRAIN_SIZE),
+                       generator=torch.Generator().manual_seed(3)).to(device)
+    trainer.model.eval()
+    with torch.no_grad():
+        same = all(torch.equal(a, b) for a, b in zip(trainer.model(probe), det.heads(probe)))
+    print(f"(p2) the recipe on {device}: {steps} steps in {out['recipe_s']:.1f} s, mean loss of "
+          f"the first {w} steps {first:.4f}, of the last {w} {last:.4f} (gate < "
+          f"{RECIPE_LOSS_FALL} x); saved to {path.name} and loaded back: heads bit-equal {same}")
+    if not (last < RECIPE_LOSS_FALL * first and same):
+        raise SystemExit("(p2): the recipe's loss did not fall, or its saved weights differ")
+    scene = synthetic.make_scene(n_frames=ONLINE_FRAMES, **ONLINE_SCENE)
+    rows = synthetic.offline_detection_rows(scene)
+    cfg = online_config()
+    cfg = cfg.replace(detector=dataclasses.replace(cfg.detector, weights_path=str(path)))
+    run = drive_slot("p2: mode 3 with the card-trained detector", cfg, scene, frames_o, rows,
+                     device=device, gate_ate=False)
+    low = {}
+    for name, weights in (("card", path), ("bundled", W8_WEIGHTS)):
+        d = Detector(input_size=TRAIN_SIZE, width=recipe.WIDTH, conf=LOW_CONF, device=device)
+        d.load_npz(str(weights))
+        low[name] = [d.run(f[0]) for f in frames_o]
+    out["recall"] = _recall(run["raw"], rows)
+    out["bundled_recall"] = _recall([[x for x in dets if x["score"] >= 0.3]
+                                     for dets in low["bundled"]], rows)
+    out["recall_low"], out["bundled_recall_low"] = (_recall(low["card"], rows),
+                                                    _recall(low["bundled"], rows))
+    top = [round(max((x["score"] for x in dets), default=0.0), 3) for dets in low["card"]]
+    print(f"(p2) recall of (o)'s offline boxes at IoU >= {RECALL_IOU} on its {len(frames_o)} "
+          f"frames (seed 205 is one of the recipe's scenes: a training-set recall), at the "
+          f"System's conf 0.3: card-trained {out['recall']:.3f}, bundled "
+          f"{out['bundled_recall']:.3f}; at conf {LOW_CONF}: {out['recall_low']:.3f} and "
+          f"{out['bundled_recall_low']:.3f}; the card-trained detector's top score per frame "
+          f"{top}; object tracks {[(t.track_id, len(t.poses_cf)) for t in run['tracks']]} "
+          f"(printed, not gated)")
+    out.update(recipe_first=first, recipe_last=last, launches=run["launches"],
+               frames=run["frames"])
+
+    # (p3) the ReID training, whole, at its defaults
+    t0 = time.perf_counter()
+    net, acc = train_reid.train(steps=reid_steps or 800, device=device)
+    out["reid_s"] = time.perf_counter() - t0
+    out["reid_margin"], out["bundled_reid_margin"] = _reid_margin(net), bundled_margin
+    print(f"(p3) ReID training on {device}: {reid_steps or 800} steps in {out['reid_s']:.1f} s "
+          f"(last batch's id-accuracy {acc:.3f}); held-out identity margin "
+          f"{out['reid_margin']:.4f} (gate > {MIN_REID_MARGIN}), the bundled weights' "
+          f"{bundled_margin:.4f}")
+    if not out["reid_margin"] > MIN_REID_MARGIN:
+        raise SystemExit("(p3): the card-trained ReID network does not separate identities")
+
+    # (p4)
+    out["two_view"] = run_two_view(device)
     return out
 
 
@@ -2396,6 +2859,7 @@ def main() -> int:
     kernel = check_patch_gather(seq)
     forwards = forward_detectors()
     detection_launches = count_detection_launches(forwards)
+    train_profile = profile_training_steps()
 
     patch.LAUNCHES = 0
     patch.CANVAS_BUILDS = 0
@@ -2432,6 +2896,10 @@ def main() -> int:
     print(f"phase (l) took {time.perf_counter() - t0:.1f} s")
     slot = run_slot_modes(card, forwards=forwards, launches=detection_launches)
     runs.update({k: slot[k] for k in ("m1", "m2", "n", "o")})
+    t0 = time.perf_counter()
+    train = run_training(card, slot["frames_o"], train_profile)
+    runs["p2"] = dict(launches=train["launches"], frames=train["frames"])
+    print(f"phase (p) took {time.perf_counter() - t0:.1f} s")
 
     left = kernel["sites"][0]
     line = {"kernels": [{
@@ -2449,7 +2917,14 @@ def main() -> int:
         "frames_system": {k: r["frames"] for k, r in runs.items()},
         "earlier_canvas": {"ms": kernel["canvas_ms"], "cold_ms": kernel["canvas_cold_ms"],
                            "launches": kernel["canvas_launches"]},
-        "outside_kernels": {"stages": slot["stages"], "forwards": slot["forwards"]},
+        "outside_kernels": {
+            "stages": slot["stages"], "forwards": slot["forwards"],
+            "training_steps": train["timing"],
+            "training": {k: train[k] for k in (
+                "render_s", "recipe_s", "recipe_first", "recipe_last", "recall", "bundled_recall",
+                "recall_low", "bundled_recall_low", "reid_s", "reid_margin",
+                "bundled_reid_margin")},
+            "two_view": train["two_view"]},
     }]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

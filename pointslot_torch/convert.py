@@ -186,7 +186,9 @@ def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     names (detect/layers.py): kernels HWIO -> OIHW (a dense kernel is
     transposed), BN scale and bias from "params", mean and var from
     "batch_stats". Raises KeyError on a tensor missing or left over and
-    ValueError on a shape that differs."""
+    ValueError on a shape that differs. The module comes back in eval mode
+    (BatchNorm's inference form), as flax's ``apply`` defaults to
+    ``train=False``."""
     flat = flat_flax(variables)
     used = set()
     state = {}
@@ -212,7 +214,7 @@ def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     if extra:
         raise KeyError(f"flax variables hold tensors the module lacks: {extra[:4]}")
     module.load_state_dict(state)
-    return module
+    return module.eval()
 
 
 def flax_from_module(module: torch.nn.Module) -> dict:
@@ -255,3 +257,20 @@ def reid_from_flax(variables):
 
     flat = flat_flax(variables)
     return load_flax(ReIDNet(features=flat["params/Dense_0/kernel"].shape[-1]), flat)
+
+
+def yolo_trainer_from_flax(variables, input_size: int = 320, lr: float = 1e-3,
+                           device="cuda"):
+    """A ``detect.train.YoloTrainer`` starting from the JAX package's
+    detector variables (its trainer's ``variables``, or the flat npz)."""
+    from pointslot_torch.detect.train import YoloTrainer
+
+    return YoloTrainer(input_size=input_size, lr=lr, device=device,
+                       model=detector_from_flax(variables))
+
+
+def reid_training_from_flax(variables, head) -> tuple:
+    """The JAX ReID training's initial state -- its network's variables and
+    the (features, n_ids) softmax head -- as the port's (ReIDNet, head
+    tensor), for ``detect.train_reid.train(init=...)``."""
+    return reid_from_flax(variables), torch.from_numpy(np.array(head, np.float32))

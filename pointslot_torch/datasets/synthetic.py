@@ -349,6 +349,10 @@ class SyntheticRenderer:
         right, _, _ = self._render_one(frame_idx, cam.baseline)
         return left, right, inst
 
+    def render_left(self, frame_idx: int) -> np.ndarray:
+        """The left view alone, uint8 (what ``render`` returns first)."""
+        return self._render_one(frame_idx, 0.0)[0]
+
     def render_with_depth(self, frame_idx: int):
         """Returns (left, right, instance_mask_left, depth_left)."""
         cam = self.scene.camera

@@ -1,7 +1,8 @@
 """Layers shared by the detector and the ReID network, in flax's terms.
 
 Convolutions pad as XLA's "SAME" does (for a stride-2 3x3 on an even side,
-(0, 1)); BatchNorm is flax's in inference form; ``Named`` gives children
+(0, 1)); BatchNorm is flax's, in inference form under ``eval()`` and in
+its training form under ``train()``; ``Named`` gives children
 flax's automatic names (``Conv_0``, ``BatchNorm_1``, ``C3_2``, ...) in call
 order, so that ``convert.detector_from_flax`` and ``convert.reid_from_flax``
 map the JAX package's variables onto a module name for name.
@@ -35,8 +36,16 @@ def conv_same(x: torch.Tensor, weight: torch.Tensor, stride: int,
 
 
 class BatchNorm(nn.Module):
-    """Flax BatchNorm in inference form: (x - mean) / sqrt(var + eps) *
-    scale + bias, over the channel axis of NCHW."""
+    """Flax BatchNorm over the channel axis of NCHW (momentum 0.97).
+
+    In eval mode, the inference form: (x - mean) / sqrt(var + eps) * scale +
+    bias. In train mode, flax's ``train=True`` form: the batch mean and the
+    biased "fast" variance max(0, E[x^2] - E[x]^2) normalise as
+    (x - mu) * (rsqrt(var + eps) * scale) + bias, and the running
+    statistics move as ra = 0.97 ra + 0.03 batch, with the biased variance
+    (``F.batch_norm(training=True)`` would store the unbiased one)."""
+
+    MOMENTUM = 0.97
 
     def __init__(self, channels: int, eps: float):
         super().__init__()
@@ -47,7 +56,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x):
-        return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0,
+                                self.eps)
+        mu = x.mean(dim=(0, 2, 3))
+        var = torch.clamp(x.square().mean(dim=(0, 2, 3)) - mu.square(), min=0.0)
+        with torch.no_grad():
+            self.mean.copy_(self.MOMENTUM * self.mean + (1 - self.MOMENTUM) * mu)
+            self.var.copy_(self.MOMENTUM * self.var + (1 - self.MOMENTUM) * var)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mu[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 class Conv(nn.Module):
@@ -80,10 +98,13 @@ class Named(nn.Module):
         return module
 
 
-def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+def init_weights(model: nn.Module, seed: int = 0,
+                 generator: Optional[torch.Generator] = None) -> nn.Module:
     """Seeded weights: conv and dense kernels normal with variance 1 /
-    fan-in (flax's default lecun scaling), BN at identity, biases zero."""
-    g = torch.Generator().manual_seed(seed)
+    fan-in (flax's default lecun scaling), BN at identity, biases zero.
+    They are drawn from `generator` if given, else from one seeded with
+    `seed`."""
+    g = generator if generator is not None else torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (Conv, nn.Linear)):

@@ -108,11 +108,11 @@ class ReIDEmbedder:
         self.net = init_weights(ReIDNet(features=feature_dim), seed).to(self.device).eval()
 
     def load_npz(self, path: str):
-        """Load trained weights: the JAX package's flat npz (detect/
-        train_reid.save_npz)."""
-        from pointslot_torch import convert
+        """Load trained weights: the flat npz of either package's
+        ``train_reid.save_npz``."""
+        from pointslot_torch.detect.train_reid import load_npz
 
-        self.net = convert.reid_from_flax(dict(np.load(path))).to(self.device).eval()
+        self.net = load_npz(path, self.device)
 
     @staticmethod
     def bundled_weights_path():
