@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive pointslot_torch's per-frame hot path, its Systems in every SLOT
-mode with their options, and its loop closing and relocalization on one
-CUDA card.
+mode with their options, its loop closing and relocalization, and its
+runner CLI on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,9 @@ sm_90a card). Phases, in order; any failure exits non-zero:
 2. build: nvcc builds every kernel of the paths from pointslot_torch/csrc;
 3. kernels against their plain versions (exact) at the four patch-gather
    call sites of frame 1's step and on edge centres, with device times from
-   CUDA graphs of repeated launches, warm and L2-cold, beside the bound;
+   CUDA graphs of repeated launches, warm and L2-cold, beside the bound and
+   beside the library yardstick (one advanced-indexing call on a prebuilt
+   canvas);
 4. fused step: a KITTI-size (1242x375) synthetic mode-4 sequence through
    FusedFrameStep on the card -- a 2048-point local map and two 256-point
    object tables of the true structure, refreshed at keyframes -- checked
@@ -130,13 +132,36 @@ sm_90a card). Phases, in order; any failure exits non-zero:
    reconstruct_two_view on tests/test_aux.py:25's scene (K = 128), card
    against the CPU path on the same draws, that test's gates, the first
    call timed apart from the warm median;
-11. one JSON line with every kernel's numbers (and the times of the
-   detection stages and of phase (p), which no kernel of the port covers);
-12. last line: {"ok": true, "device": {...}}.
+11. (q) the runner, `pointslot_torch.run`: (q1) (d)'s 20 frames written
+   as a KITTI-tracking sequence into a temporary directory without PIL
+   (gray PNGs whose rows take the five filter types in turn, 16-bit
+   MOTS-style instance PNGs, label_02/0000.txt, pose_gt.txt, calib.yaml),
+   every PNG decoded equal to the array written by the C unfilter helper
+   and by the plain one (decode ms printed), then `run.main` in mode 4 with
+   sync mapping: exit 0, 20 trajectory rows, 20 ObjectDetections files
+   (one at least not empty), the object trajectories, stats.json with
+   frames 20, evaluation.camera within (d)'s ATE gate and
+   evaluation.objects, 4 patch-gather launches per frame plus 4 per frame
+   with detections; ms per frame, fps and the wait on the prefetch queue;
+   (q2) mode 0 on (q1)'s 20 files with --dp 4 and without: the batched
+   frames bit-equal to the single-pair frontend's, 4 launches per pair,
+   the trajectories within 1e-4 m, and batch against single-pair ms per
+   pair; (q3) `python -m pointslot_torch.run` in subprocesses (8
+   synthetic frames; 5 frames with --save-checkpoint beside it; then
+   --resume): exit 0, one JSON line, stats.json; (q4) --viz and --live
+   where PIL imports, else each stops the runner with a non-zero exit and
+   the reason;
+12. one JSON line with every kernel's numbers (and the times of the
+   detection stages, of phase (p) and of the runner, which no kernel of
+   the port covers);
+13. last line: {"ok": true, "device": {...}}.
 
 Depth cuts, for the time limit: the mode-0 System runs 40 frames (async
 20), the mode-4 System 20; the loop scene runs whole (it needs its full
 circle to close); none was cut further by the later phases' addition.
+The runner's phase reuses (d)'s rendered frames, and every synthetic
+sequence is rendered on RENDER_THREADS host threads (the same frames as a
+serial render) to keep the whole script inside its time.
 Needs no network; builds into build/kernels/.
 """
 
@@ -146,6 +171,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -209,6 +235,16 @@ RESUME_AT = 10                   # (k): frames tracked before the checkpoint
 ORBVOC_K, ORBVOC_DEPTH = 10, 6   # ORBvoc's shape, tests/test_vocab_orbvoc_scale.py:17
 DIST_K1, DIST_FRAMES = -0.05, 12  # tests/test_distortion_e2e.py:12-13
 BUILD_DIR = Path(__file__).resolve().parent / "build"   # git-ignored: checkpoint, vocabulary
+RENDER_THREADS = 8               # host threads that render the synthetic frames
+
+
+def render_frames(render, indices) -> list:
+    """[render(i) for i in indices] on RENDER_THREADS host threads, in
+    order. The synthetic renderer holds no state that a call changes, so
+    the frames equal a serial render's; numpy releases the interpreter
+    lock in its array work."""
+    with ThreadPoolExecutor(RENDER_THREADS) as pool:
+        return list(pool.map(render, indices))
 
 
 def _capture(fn, reps: int) -> torch.cuda.CUDAGraph:
@@ -346,9 +382,16 @@ def check_patch_gather(seq) -> dict:
     out = []
     for name, (planes, xyl) in sites.items():
         fn = lambda: patch.gather_patches_cuda(planes, xyl)  # noqa: E731
+        # the library yardstick: one advanced-indexing call on a prebuilt
+        # canvas (the canvas build is not timed)
+        canvas = patch.stack_pyramid_for_patches(list(planes))
+        library = lambda: patch.extract_patches_stack_plain(canvas, xyl)  # noqa: E731
+        if not torch.equal(library(), fn()):
+            raise SystemExit(f"patch_gather disagrees with the indexing call ({name})")
         row = dict(site=name, K=int(xyl.shape[0]), cold_ms=_cold_ms(fn, flush),
                    warm_ms=_graph_ms(fn),
                    plain_ms=_graph_ms(lambda: patch.gather_patches_plain(planes, xyl), reps=10),
+                   library_ms=_cold_ms(library, flush), library_warm_ms=_graph_ms(library),
                    bound_ms=_patch_bound_ms(planes, xyl),
                    canvas_count_bound_ms=_patch_bound_ms(planes, xyl, in_plane=False))
         out.append(row)
@@ -356,7 +399,9 @@ def check_patch_gather(seq) -> dict:
               f"{row['bound_ms']:.6f} ms (bytes; canvas count "
               f"{row['canvas_count_bound_ms']:.6f}), cold/bound "
               f"{row['cold_ms'] / row['bound_ms']:.2f}; warm {row['warm_ms']:.6f} ms "
-              f"(L2-resident, not held to the bound); plain {row['plain_ms']:.6f} ms")
+              f"(L2-resident, not held to the bound); plain {row['plain_ms']:.6f} ms; library "
+              f"(advanced indexing on a prebuilt canvas) cold {row['library_ms']:.6f} ms, warm "
+              f"{row['library_warm_ms']:.6f} ms")
 
     for K in (64, 266, 1000, 4000):
         xyl = xyl_l.repeat(-(-K // xyl_l.shape[0]), 1)[:K].contiguous()
@@ -395,7 +440,7 @@ class Sequence:
                                           seed=7, camera=cam, forward_speed=0.3)
         renderer = synthetic.SyntheticRenderer(self.scene)
         t0 = time.perf_counter()
-        self.frames = [renderer.render_with_depth(i) for i in range(n_frames)]
+        self.frames = render_frames(renderer.render_with_depth, range(n_frames))
         print(f"rendered {n_frames} stereo pairs {cam.width}x{cam.height} in "
               f"{time.perf_counter() - t0:.1f} s (host)")
         self.dev = full.device
@@ -607,7 +652,7 @@ def render_system_frames(n: int):
                                  forward_speed=SYSTEM_SPEED)
     renderer = synthetic.SyntheticRenderer(scene)
     t0 = time.perf_counter()
-    frames = [renderer.render(i)[:2] for i in range(n)]
+    frames = [f[:2] for f in render_frames(renderer.render, range(n))]
     print(f"rendered {n} stereo pairs for the System in {time.perf_counter() - t0:.1f} s (host)")
     return scene, frames
 
@@ -1021,16 +1066,14 @@ def render_object_frames(n: int, flow: bool = False):
     rows = synthetic.offline_detection_rows(scene)
     t0 = time.perf_counter()
     frames = []
-    for i in range(n):
-        if flow:
-            left, right, inst, depth = renderer.render_with_depth(i)
-        else:
-            left, right, inst = renderer.render(i)
+    rendered = render_frames(renderer.render_with_depth if flow else renderer.render, range(n))
+    for i, views in enumerate(rendered):
+        left, right, inst = views[:3]
         fr = rows[(rows[:, 0] == i) & (rows[:, 1] >= 0)]
         frames.append((left, right, [Detection.from_row24(r, mask_value=int(r[1]) + 1)
                                      for r in fr], inst))
         if flow:
-            frames[-1] += (gt_forward_flow(scene, i, inst, depth) if i + 1 < n else None,)
+            frames[-1] += (gt_forward_flow(scene, i, inst, views[3]) if i + 1 < n else None,)
     spans = {}
     for o in scene.objects:
         seen = rows[rows[:, 1] == o.track_id][:, 0].astype(int)
@@ -1105,7 +1148,7 @@ def run_objects(card: str, device="cuda") -> dict:
           f"(e) {e['obj_ba_device_ms']}; patch_gather launches (d) {d['launches']} over "
           f"{d['frames']} frames ({d['obj_frames']} with detections), (e) {e['launches']} over "
           f"{e['frames']} ({e['obj_frames']})")
-    return dict(d=d, e=e)
+    return dict(d=d, e=e, scene=scene, frames=frames)
 
 
 # ---------------------------------------------------------------------------
@@ -1327,7 +1370,7 @@ def render_loop_frames():
     scene = synthetic.make_loop_scene(n_frames=LOOP_SCENE_FRAMES, seed=41, radius=7.0)
     renderer = synthetic.SyntheticRenderer(scene)
     t0 = time.perf_counter()
-    frames = [renderer.render(i)[:2] for i in range(scene.n_frames)]
+    frames = [f[:2] for f in render_frames(renderer.render, range(scene.n_frames))]
     print(f"rendered {len(frames)} stereo pairs of the loop scene in "
           f"{time.perf_counter() - t0:.1f} s (host)")
     return scene, frames
@@ -1822,8 +1865,8 @@ def run_distortion(device="cuda") -> dict:
                                  forward_speed=0.5, yaw_rate=0.03)
     renderer = synthetic.SyntheticRenderer(scene)
     t0 = time.perf_counter()
-    frames = [tuple(distort_image(x, pin, DIST_K1) for x in renderer.render(i)[:2])
-              for i in range(DIST_FRAMES)]
+    frames = render_frames(lambda i: tuple(distort_image(x, pin, DIST_K1)
+                                           for x in renderer.render(i)[:2]), range(DIST_FRAMES))
     render_s = time.perf_counter() - t0
     runs = {}
     for calibrated in (True, False):
@@ -1920,7 +1963,7 @@ def render_slot_frames(spec: dict, n: int):
     scene = synthetic.make_scene(n_frames=n, **spec)
     renderer = synthetic.SyntheticRenderer(scene)
     t0 = time.perf_counter()
-    frames = [renderer.render(i) for i in range(n)]
+    frames = render_frames(renderer.render, range(n))
     print(f"rendered {n} stereo pairs of make_scene({spec}) in "
           f"{time.perf_counter() - t0:.1f} s (host)")
     return scene, frames, synthetic.offline_detection_rows(scene)
@@ -2835,6 +2878,377 @@ def run_training(card: str, frames_o, train_profile: dict, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# (q): the runner on the card: a KITTI sequence on disk, the batched
+# frontend, the entry point as users start it, the viewers
+# ---------------------------------------------------------------------------
+
+RUNNER_FRAMES = 20              # (q1): (d)'s scene, written as a KITTI-tracking sequence
+DP_BATCH = 4                    # (q2), on (q1)'s files in mode 0
+MAX_DP_GAP_M = 1e-4             # (q2): --dp against no --dp, per frame
+CLI_FRAMES, CLI_SAVE_AT = 8, 5  # (q3)
+RUNNER_TIMEOUT_S = 300          # each runner subprocess
+
+
+def write_kitti_fixture(root: Path, scene, frames) -> dict:
+    """`frames` of `scene` as KITTI-tracking sequence 0000 under `root`:
+    gray PNGs whose rows take the five filter types in turn (write_png),
+    MOTS-style 16-bit instance PNGs (write_png16),
+    label_02/0000.txt (Y at the box's bottom centre), pose_gt.txt and a
+    reference-schema calib.yaml: the default camera, and of (d)'s
+    thresholds those the schema can set. Returns {path: array written}."""
+    from pointslot_torch.datasets.png16 import write_png, write_png16
+
+    dirs = [root / "image_02" / "0000", root / "image_03" / "0000",
+            root / "instances" / "0000", root / "label_02"]
+    for d in dirs:
+        d.mkdir(parents=True)
+    written = {}
+    for i, (left, right, _, inst) in enumerate(frames):
+        name = f"{i:06d}.png"
+        for d, img in zip(dirs[:2], (left, right)):
+            write_png(d / name, np.asarray(img, np.uint8), cycle_filters=True)
+            written[d / name] = np.asarray(img, np.uint8)
+        raw = np.where(inst > 0, 2000 + inst.astype(np.int32), 0).astype(np.uint16)
+        write_png16(dirs[2] / name, raw)
+        written[dirs[2] / name] = raw
+    (dirs[3] / "0000.txt").write_text(synthetic.kitti_label_text(scene, len(frames)))
+    np.savetxt(root / "pose_gt.txt", np.stack([T[:3, :4].reshape(-1)
+                                               for T in scene.poses_world[:len(frames)]]))
+    cam = CameraConfig()
+    keys = dict(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=cam.width,
+                height=cam.height, bf=cam.bf, fps=cam.fps)
+    (root / "calib.yaml").write_text(
+        "%YAML:1.0\n" + "".join(f"Camera.{k}: {v}\n" for k, v in keys.items())
+        + "SLOT.MODE: 4\nTracking.MinInitStereoFeatures: 350\n"
+          "Object.EnInitDetObjORBFeaturesNum: 10\nObject.EbSetInitPositionByPoints: 0\n")
+    return written
+
+
+def check_decodes(root: Path, written: dict) -> dict:
+    """Every PNG written decoded by the C helper and by the plain unfilter,
+    held to the array written; then decode ms per 1242x375 image, gray (as
+    written) and RGB (one written here), for both."""
+    from pointslot_torch.datasets import png16
+
+    grays = sorted(p for p in written if p.parent.parent.name.startswith("image_"))
+    rgb = np.stack([written[grays[0]], written[grays[1]], written[grays[2]]], axis=-1)
+    png16.write_png(root / "rgb.png", rgb, cycle_filters=True)
+    cases = {**written, root / "rgb.png": rgb}
+    for path, arr in cases.items():
+        for plain in (False, True):
+            got = png16.read_png(str(path), plain=plain)
+            if got.dtype != arr.dtype or not np.array_equal(got, arr):
+                raise SystemExit(f"(q1) {path} decoded {'plainly' if plain else 'by the C helper'} "
+                                 f"differs from the array written")
+    out = {}
+    for what, paths in (("gray", grays[:8]), ("rgb", [root / "rgb.png"] * 5)):
+        for plain in (False, True):
+            ts = []
+            for p in paths:
+                t0 = time.perf_counter()
+                png16.read_png(str(p), plain=plain)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            out[f"{what}_{'plain' if plain else 'c'}_ms"] = float(np.median(ts))
+    print(f"(q1) {len(cases)} PNGs (rows filtered 0-4 in turn; gray, RGB and 16-bit instance "
+          f"maps) decoded equal to the arrays written, by the C helper and by the plain "
+          f"unfilter; decode ms per {rgb.shape[1]}x{rgb.shape[0]} image (host clock, median): "
+          f"gray C {out['gray_c_ms']:.3f}, plain {out['gray_plain_ms']:.3f}; RGB C "
+          f"{out['rgb_c_ms']:.3f}, plain {out['rgb_plain_ms']:.3f}")
+    return out
+
+
+def _kitti_frames_timed(run_mod, waits: list):
+    """run._kitti_frames with the tracking loop's wait on the prefetch queue
+    appended to `waits` per frame (seconds)."""
+    inner = run_mod._kitti_frames
+
+    def kitti_frames(args, cfg):
+        frames, ctx = inner(args, cfg)
+
+        def timed():
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(frames)
+                    except StopIteration:
+                        return
+                    waits.append(time.perf_counter() - t0)
+                    yield item
+            finally:
+                frames.close()
+        return timed(), ctx
+    return kitti_frames
+
+
+def _runner(argv) -> tuple:
+    """pointslot_torch.run.main in this process: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    from pointslot_torch import run as run_mod
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = run_mod.main([str(a) for a in argv])
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _translations(path: Path) -> np.ndarray:
+    return np.loadtxt(path, ndmin=2).reshape(-1, 3, 4)[:, :, 3]
+
+
+def run_runner_kitti(card: str, tmp: Path, scene, frames, device="cuda") -> dict:
+    """(q1): mode 4 through pointslot_torch.run.main on the KITTI files."""
+    from pointslot_torch import run as run_mod
+    from pointslot_torch.datasets.kitti import KittiTrackingSequence
+
+    root, out_dir = tmp / "kitti", tmp / "q1"
+    t0 = time.perf_counter()
+    written = write_kitti_fixture(root, scene, frames)
+    print(f"(q1) wrote {len(written)} PNGs and the labels of {len(frames)} frames in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    decode = check_decodes(root, written)
+    seq_rows = KittiTrackingSequence(str(root), "0000").rows
+    det_frames = {int(f) for f in seq_rows[(seq_rows[:, 1] >= 0) & (seq_rows[:, 17] > 0), 0]}
+    waits = []
+    inner, run_mod._kitti_frames = run_mod._kitti_frames, _kitti_frames_timed(run_mod, waits)
+    patch.LAUNCHES = 0
+    try:
+        rc, stdout, stderr = _runner([
+            "--data", root, "--sequence", "0000", "--config", root / "calib.yaml",
+            "--mode", "4", "--sync-mapping", "--no-loop", "--out", out_dir,
+            "--platform", "cuda" if device == "cuda" else "cpu"])
+        launches = patch.LAUNCHES
+    finally:
+        run_mod._kitti_frames = inner
+    if rc != 0:
+        raise SystemExit(f"(q1) the runner exited {rc}: {stderr[-2000:]}")
+    traj = np.loadtxt(out_dir / "CameraTrajectory.txt", ndmin=2)
+    stats = json.loads((out_dir / "stats.json").read_text())
+    n = stats["frames"]
+    det_dir = out_dir / "ObjectDetections"
+    det_files = sorted(p.name for p in det_dir.iterdir())
+    non_empty = sum(1 for f in det_files if (det_dir / f).read_text().strip())
+    obj_files = sorted(p.name for p in out_dir.glob("CameraAndObjectTrajectory*.txt"))
+    ev = stats.get("evaluation", {})
+    ate = ev.get("camera", {}).get("ate", {}).get("rmse", float("inf"))
+    objs = ev.get("objects", {})
+    gate_ate = MAX_ATE_SHARE * SYSTEM_SPEED * len(frames)
+    expected = 4 * (len(frames) + len(det_frames))
+    ms = stats["wall_s"] / max(n, 1) * 1e3
+    print(f"(q1) runner, mode 4, sync mapping, on {card}: exit {rc}, {traj.shape[0]} trajectory "
+          f"rows of {traj.shape[1]} floats, {len(det_files)} ObjectDetections files "
+          f"({non_empty} not empty), object trajectories {obj_files}, evaluation.camera ATE "
+          f"{ate:.4f} m (gate {gate_ate:.2f} m), evaluation.objects {objs.get('n_matched')} "
+          f"of {objs.get('n_gt')} GT rows matched (centre RMSE {objs.get('center_rmse')}); "
+          f"patch_gather launches {launches} "
+          f"(expected {expected}: 4 per frame + 4 per frame with detections, "
+          f"{len(det_frames)})")
+    wait_ms = [w * 1e3 for w in waits]
+    print(f"(q1) on {card}: {ms:.3f} ms per frame, {stats['fps']:.3f} fps (runner wall clock, "
+          f"decoding included); the tracking loop's wait on the prefetch queue per frame: "
+          f"median {np.median(wait_ms):.3f} ms, first {wait_ms[0]:.3f} ms, max "
+          f"{max(wait_ms):.3f} ms over {len(wait_ms)} frames")
+    ok = (traj.shape == (len(frames), 12) and n == len(frames)
+          and det_files == [f"{i:06d}.txt" for i in range(len(frames))] and non_empty >= 1
+          and "CameraAndObjectTrajectory.txt" in obj_files and len(obj_files) >= 2
+          and (out_dir / "ObjectPosesCF.txt").exists() and ate < gate_ate and objs)
+    if not ok:
+        raise SystemExit("(q1): the runner's artifacts or evaluation fail the gates")
+    if device == "cuda" and launches != expected:
+        raise SystemExit(f"(q1): {launches} patch_gather launches, expected {expected}")
+    return dict(launches=launches, frames=n, ms=ms, fps=stats["fps"],
+                wait_ms=float(np.median(wait_ms)), wait_first_ms=wait_ms[0],
+                wait_max_ms=float(max(wait_ms)), ate=ate, decode=decode)
+
+
+def run_runner_dp(card: str, tmp: Path, root: Path, n: int, device="cuda") -> dict:
+    """(q2): mode 0 on (q1)'s `n` KITTI frames under `root`, with --dp
+    DP_BATCH and without; the batched frames held to the single-pair
+    frontend's. (Files, not --synthetic: the synthetic renderer costs
+    about 0.7 s per full-width frame on the host, inside the runner's
+    loop.)"""
+    recorded = []
+    batch = StereoFrontend.batch
+
+    def recording(fe, lefts, rights):
+        sf = batch(fe, lefts, rights)
+        recorded.append((fe, lefts, rights, sf))
+        return sf
+
+    platform = "cuda" if device == "cuda" else "cpu"
+    common = ["--data", root, "--sequence", "0000", "--config", root / "calib.yaml",
+              "--mode", "0", "--sync-mapping", "--no-loop", "--platform", platform]
+    runs = {}
+    for name, extra in (("dp", ["--dp", DP_BATCH]), ("single", [])):
+        StereoFrontend.batch = recording
+        patch.LAUNCHES = 0
+        try:
+            rc, _, stderr = _runner(common + ["--out", tmp / f"q2_{name}"] + extra)
+            launches = patch.LAUNCHES
+        finally:
+            StereoFrontend.batch = batch
+        if rc != 0:
+            raise SystemExit(f"(q2) the runner ({name}) exited {rc}: {stderr[-2000:]}")
+        stats = json.loads((tmp / f"q2_{name}" / "stats.json").read_text())
+        runs[name] = dict(launches=launches, frames=stats["frames"],
+                          ms=stats["wall_s"] / stats["frames"] * 1e3)
+    pairs = sum(len(r[1]) for r in recorded)
+    differ = []
+    for fe, lefts, rights, sf in recorded:
+        for i in range(len(lefts)):
+            one = fe(lefts[i], rights[i])
+            differ += [n for n, b, s in zip(one._fields, sf, one) if not torch.equal(b[i], s)]
+    gap = float(np.abs(_translations(tmp / "q2_dp" / "CameraTrajectory.txt")
+                       - _translations(tmp / "q2_single" / "CameraTrajectory.txt")).max())
+    print(f"(q2) mode 0, (q1)'s {n} frames, on {card}: --dp {DP_BATCH} "
+          f"{runs['dp']['ms']:.3f} ms per frame, {runs['dp']['launches']} patch_gather launches; "
+          f"without --dp {runs['single']['ms']:.3f} ms per frame, {runs['single']['launches']} "
+          f"launches; {pairs} batched pairs against the single-pair frontend: fields that "
+          f"differ {sorted(set(differ))}; largest camera translation difference between the two "
+          f"trajectories {gap:.3e} m (gate {MAX_DP_GAP_M})")
+    if pairs != n or differ:
+        raise SystemExit(f"(q2): {pairs} batched pairs, fields differing {sorted(set(differ))}")
+    if device == "cuda" and any(r["launches"] != 4 * n for r in runs.values()):
+        raise SystemExit(f"(q2): expected {4 * n} patch_gather launches per run, got "
+                         f"{[r['launches'] for r in runs.values()]}")
+    if not gap <= MAX_DP_GAP_M:
+        raise SystemExit(f"(q2): --dp and no --dp trajectories differ by {gap:.3e} m")
+    return dict(runs, gap=gap)
+
+
+def time_batch(card: str, frames) -> dict:
+    """StereoFrontend.batch ms per pair on the first DP_BATCH full-width
+    pairs of `frames` against the single-pair frontend (CUDA events,
+    medians of 10 after 2)."""
+    pairs = [f[:2] for f in frames[:DP_BATCH]]
+    cam = CameraConfig()
+    fe = StereoFrontend(cam.height, cam.width, cam.fx, cam.bf, device="cuda")
+    lefts = torch.from_numpy(np.stack([p[0] for p in pairs])).cuda()
+    rights = torch.from_numpy(np.stack([p[1] for p in pairs])).cuda()
+    out = {"batch_ms_per_pair": _event_ms(lambda: fe.batch(lefts, rights), 10, 2) / DP_BATCH,
+           "single_ms": _event_ms(lambda: [fe.run(lefts[i], rights[i])
+                                           for i in range(DP_BATCH)], 10, 2) / DP_BATCH}
+    print(f"(q2) StereoFrontend.batch on {card}: {out['batch_ms_per_pair']:.3f} ms per pair "
+          f"over {DP_BATCH} pairs, the single-pair frontend {out['single_ms']:.3f} ms per pair "
+          f"(CUDA events, host launches included)")
+    return out
+
+
+def run_runner_cli(card: str, tmp: Path, device="cuda") -> dict:
+    """(q3): `python -m pointslot_torch.run` as users start it: a run of
+    CLI_FRAMES frames beside a run that saves a checkpoint after
+    CLI_SAVE_AT frames, then a resume from that checkpoint (beside the
+    first run if it is still going)."""
+    platform = [] if device == "cuda" else ["--platform", "cpu"]
+    base = [sys.executable, "-m", "pointslot_torch.run", "--synthetic", str(CLI_FRAMES),
+            "--mode", "0", "--no-loop", *platform]
+    ckpt = tmp / "q3.npz"
+    cwd = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    procs = {"plain": subprocess.Popen(base + ["--out", str(tmp / "q3_plain")], cwd=cwd,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+             "save": subprocess.Popen(base + ["--out", str(tmp / "q3_save"), "--max-frames",
+                                              str(CLI_SAVE_AT), "--save-checkpoint", str(ckpt)],
+                                      cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True)}
+    results = {}
+    try:
+        for name in ("save", "resume", "plain"):
+            if name == "resume":     # beside the plain run, once the checkpoint is saved
+                procs[name] = subprocess.Popen(
+                    base + ["--out", str(tmp / "q3_resume"), "--resume", str(ckpt)], cwd=cwd,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            out, err = procs[name].communicate(timeout=RUNNER_TIMEOUT_S)
+            results[name] = (procs[name].returncode, out, err)
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"(q3) a runner process took over {RUNNER_TIMEOUT_S} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    summary = {}
+    for name, (rc, out, err) in results.items():
+        lines = [ln for ln in out.splitlines() if ln.strip()]
+        try:
+            stats = json.loads(lines[-1]) if len(lines) == 1 else None
+        except ValueError:
+            stats = None
+        on_disk = (tmp / f"q3_{name}" / "stats.json").exists()
+        summary[name] = dict(rc=rc, stdout_lines=len(lines), stats_json=on_disk,
+                             frames=stats and stats.get("frames"),
+                             keyframes=stats and stats.get("n_keyframes"))
+        if not (rc == 0 and stats is not None and on_disk):
+            raise SystemExit(f"(q3) python -m pointslot_torch.run ({name}) exited {rc} with "
+                             f"{len(lines)} stdout lines: {err[-2000:]}")
+    print(f"(q3) python -m pointslot_torch.run on {card}, three processes in {seconds:.1f} s: "
+          f"{summary}; checkpoint {ckpt.stat().st_size} bytes")
+    want = {"plain": CLI_FRAMES, "save": CLI_SAVE_AT, "resume": CLI_FRAMES}
+    if (any(summary[k]["frames"] != v for k, v in want.items())
+            or not summary["resume"]["keyframes"]):
+        raise SystemExit(f"(q3): frames {summary}")
+    return dict(summary, seconds=seconds)
+
+
+def run_viewers(card: str, tmp: Path, device="cuda") -> dict:
+    """(q4): --viz and --live where PIL imports; else each flag stops the
+    runner before the first frame with the reason."""
+    import importlib.util
+
+    platform = "cuda" if device == "cuda" else "cpu"
+    base = ["--synthetic", 2, "--mode", "0", "--no-loop", "--platform", platform]
+    have_pil = importlib.util.find_spec("PIL") is not None
+    out = {"pil": have_pil}
+    import socket
+
+    with socket.socket() as sock:         # a free port on this host for --live
+        sock.bind(("127.0.0.1", 0))
+        live_port = sock.getsockname()[1]
+    for flag, value in (("--viz", 1), ("--live", live_port)):
+        rc, _, err = _runner(base + ["--out", tmp / f"q4{flag[2:]}", flag, value])
+        out[flag] = rc
+        if have_pil:
+            made = (tmp / "q4viz" / "map_topdown.png").exists() if flag == "--viz" else True
+            if rc != 0 or not made:
+                raise SystemExit(f"(q4) {flag} with PIL: exit {rc}: {err[-2000:]}")
+        elif rc == 0 or "PIL" not in err:
+            raise SystemExit(f"(q4) {flag} without PIL: exit {rc}, stderr {err[-500:]!r}")
+        print(f"(q4) {flag} on {card}: PIL {'present' if have_pil else 'missing'}, exit {rc}"
+              + ("" if have_pil else f", stderr: {err.strip().splitlines()[-1]}"))
+    return out
+
+
+def run_runner(card: str, scene, frames, device="cuda") -> dict:
+    """Phase (q): (q1) the runner in mode 4 on (d)'s frames written as a
+    KITTI-tracking sequence, (q2) --dp against no --dp, (q3) the entry
+    point in subprocesses with a checkpoint and a resume, (q4) the
+    viewers' flags."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_q_") as d:
+        tmp = Path(d)
+        t0 = time.perf_counter()
+        q1 = run_runner_kitti(card, tmp, scene, frames[:RUNNER_FRAMES], device)
+        print(f"phase (q1) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        q2 = run_runner_dp(card, tmp, tmp / "kitti", q1["frames"], device)
+        if device == "cuda":
+            q2.update(time_batch(card, frames))
+        print(f"phase (q2) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        q3 = run_runner_cli(card, tmp, device)
+        q4 = run_viewers(card, tmp, device)
+        print(f"phase (q3, q4) took {time.perf_counter() - t0:.1f} s")
+    return dict(q1=q1, q2=q2, q3=q3, q4=q4)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2881,7 +3295,8 @@ def main() -> int:
     compare_with_cpu(cfg, full)
 
     runs = run_systems(card)
-    runs.update(run_objects(card))
+    objects = run_objects(card)
+    runs.update(d=objects["d"], e=objects["e"])
     t0 = time.perf_counter()
     flow = run_flow_objects(card)
     runs["i"] = flow["i"]
@@ -2900,6 +3315,10 @@ def main() -> int:
     train = run_training(card, slot["frames_o"], train_profile)
     runs["p2"] = dict(launches=train["launches"], frames=train["frames"])
     print(f"phase (p) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    runner = run_runner(card, objects["scene"], objects["frames"])
+    runs.update(q1=runner["q1"], q2=runner["q2"]["dp"], q2_no_dp=runner["q2"]["single"])
+    print(f"phase (q) took {time.perf_counter() - t0:.1f} s")
 
     left = kernel["sites"][0]
     line = {"kernels": [{
@@ -2911,7 +3330,7 @@ def main() -> int:
         "max_abs_err": kernel["max_abs_err"], "max_abs_diff": kernel["max_abs_err"],
         "ms": left["cold_ms"], "kernel_ms": left["cold_ms"],
         "warm_ms": left["warm_ms"], "plain_ms": left["plain_ms"],
-        "bound_ms": left["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "bound_ms": left["bound_ms"], "bound_by": "bytes", "library_ms": left["library_ms"],
         "canvas_builds": builds, "sites": kernel["sites"],
         "launches_system": {k: r["launches"] for k, r in runs.items()},
         "frames_system": {k: r["frames"] for k, r in runs.items()},
@@ -2924,7 +3343,11 @@ def main() -> int:
                 "render_s", "recipe_s", "recipe_first", "recipe_last", "recall", "bundled_recall",
                 "recall_low", "bundled_recall_low", "reid_s", "reid_margin",
                 "bundled_reid_margin")},
-            "two_view": train["two_view"]},
+            "two_view": train["two_view"],
+            "runner": {"q1": {k: v for k, v in runner["q1"].items() if k != "launches"},
+                       "q2": {k: runner["q2"][k] for k in ("gap", "batch_ms_per_pair",
+                                                           "single_ms")},
+                       "q3": runner["q3"], "q4": runner["q4"]}},
     }]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

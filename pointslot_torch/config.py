@@ -8,11 +8,15 @@ bundle-adjustment caps and chi2 gates, the loop-closing policy, and the
 runtime knobs. A field joins with the slice that reads it.
 ``runtime.pipeline_stages`` keeps the reference's default and exists so
 that the System can raise for what the port does not run yet.
+
+``load_yaml`` reads a reference-schema (OpenCV ``%YAML:1.0``) file into a
+``SystemConfig``, as ``pointslot_tpu.config.load_yaml`` does, key for key.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -43,6 +47,7 @@ class CameraConfig:
     k3: float = 0.0
     width: int = 1242
     height: int = 375
+    fps: float = 10.0
     bf: float = 384.38148       # baseline * fx
     # close/far point threshold in units of baseline (reference ThDepth)
     th_depth: float = 50.0
@@ -255,3 +260,131 @@ class SystemConfig:
 
     def replace(self, **kwargs) -> "SystemConfig":
         return dataclasses.replace(self, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# YAML loading (reference schema)
+# ---------------------------------------------------------------------------
+
+def _parse_opencv_yaml(path: str) -> dict:
+    """Parse an OpenCV ``%YAML:1.0`` flat key:value file.
+
+    cv::FileStorage YAML is almost-but-not-quite standard YAML (the ``%YAML:1.0``
+    directive and ``!!opencv-matrix`` tags break pyyaml), and the reference's
+    configs are flat scalars — so a tolerant line parser is both simpler and
+    more compatible.
+    """
+    out: dict = {}
+    with open(path, "r", encoding="utf-8", errors="replace") as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line or line.startswith("%"):
+                continue
+            m = re.match(r"^([A-Za-z0-9_.]+)\s*:\s*(.+)$", line)
+            if not m:
+                continue
+            key, val = m.group(1), m.group(2).strip().strip('"')
+            try:
+                out[key] = int(val)
+            except ValueError:
+                try:
+                    out[key] = float(val)
+                except ValueError:
+                    out[key] = val
+    return out
+
+
+def load_yaml(path: str, base: Optional[SystemConfig] = None) -> SystemConfig:
+    """Build a :class:`SystemConfig` from a reference-schema YAML file
+    (``pointslot_tpu/config.py::load_yaml``): the keys it does not set keep
+    `base`'s values. ``Camera.RGB``, ``ORBextractor.iniThFAST`` and
+    ``Viewer.ObjectCenter`` set fields that nothing reads, in either
+    package, so the port has no field for them and leaves them unread."""
+    y = _parse_opencv_yaml(path)
+    cfg = base or SystemConfig()
+
+    def get(key, default):
+        return y.get(key, default)
+
+    cam = dataclasses.replace(
+        cfg.camera,
+        fx=float(get("Camera.fx", cfg.camera.fx)),
+        fy=float(get("Camera.fy", cfg.camera.fy)),
+        cx=float(get("Camera.cx", cfg.camera.cx)),
+        cy=float(get("Camera.cy", cfg.camera.cy)),
+        k1=float(get("Camera.k1", cfg.camera.k1)),
+        k2=float(get("Camera.k2", cfg.camera.k2)),
+        p1=float(get("Camera.p1", cfg.camera.p1)),
+        p2=float(get("Camera.p2", cfg.camera.p2)),
+        width=int(get("Camera.width", cfg.camera.width)),
+        height=int(get("Camera.height", cfg.camera.height)),
+        fps=float(get("Camera.fps", cfg.camera.fps)),
+        bf=float(get("Camera.bf", cfg.camera.bf)),
+        th_depth=float(get("ThDepth", cfg.camera.th_depth)),
+    )
+    orb = dataclasses.replace(
+        cfg.orb,
+        n_features=int(get("ORBextractor.nFeatures", cfg.orb.n_features)),
+        scale_factor=float(get("ORBextractor.scaleFactor", cfg.orb.scale_factor)),
+        n_levels=int(get("ORBextractor.nLevels", cfg.orb.n_levels)),
+        min_th_fast=int(get("ORBextractor.minThFAST", cfg.orb.min_th_fast)),
+    )
+    uniform_scale = (
+        float(get("Object.Width.xc", cfg.objects.uniform_scale[0])),
+        float(get("Object.Height.yc", cfg.objects.uniform_scale[1])),
+        float(get("Object.Length.zc", cfg.objects.uniform_scale[2])),
+    )
+    objects = dataclasses.replace(
+        cfg.objects,
+        select_tracked_obj_id=int(
+            get("Object.EnSelectTrackedObjId", cfg.objects.select_tracked_obj_id)
+        ),
+        manual_point_max_distance=bool(
+            int(get("Object.EbManualSetPointMaxDistance", 0)) > 0
+        ),
+        in_obj_frame_point_max_distance=float(
+            get(
+                "Object.EfInObjFramePointMaxDistance",
+                cfg.objects.in_obj_frame_point_max_distance,
+            )
+        ),
+        set_init_position_by_points=(
+            float(get("Object.EbSetInitPositionByPoints", 1)) > 0
+        ),
+        # extension key: the reference hard-codes this switch as a local
+        # `int temp = 0/1` (src/Tracking.cc:2384-2412)
+        use_offline_flow=bool(
+            int(get("Object.UseOfflineFlow",
+                    int(cfg.objects.use_offline_flow)))
+        ),
+        init_min_features=int(
+            get("Object.EnInitDetObjORBFeaturesNum", cfg.objects.init_min_features)
+        ),
+        uniform_scale=uniform_scale,
+    )
+    detector = dataclasses.replace(
+        cfg.detector,
+        conf_threshold=float(get("Yolo.confThres", cfg.detector.conf_threshold)),
+        iou_threshold=float(get("Yolo.iouThres", cfg.detector.iou_threshold)),
+        weights_path=get("Yolo.weightsPath", cfg.detector.weights_path),
+        reid_weights_path=get("DeepSort.weightsPath", cfg.detector.reid_weights_path),
+    )
+    # extension key (no reference analog — the reference hard-codes 500,
+    # src/Tracking.cc:2842, which is disproportionate at small geometries)
+    tracking = dataclasses.replace(
+        cfg.tracking,
+        min_init_stereo_features=int(
+            get("Tracking.MinInitStereoFeatures",
+                cfg.tracking.min_init_stereo_features)
+        ),
+    )
+    return dataclasses.replace(
+        cfg,
+        slot_mode=int(get("SLOT.MODE", cfg.slot_mode)),
+        dynaslam_mode=int(get("DynaSLAM.MODE", cfg.dynaslam_mode)),
+        camera=cam,
+        orb=orb,
+        objects=objects,
+        detector=detector,
+        tracking=tracking,
+    )

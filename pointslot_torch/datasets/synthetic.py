@@ -423,6 +423,21 @@ def offline_detection_rows(scene: SyntheticScene) -> np.ndarray:
     return np.array(rows)
 
 
+def kitti_label_text(scene: SyntheticScene, n_frames: int) -> str:
+    """The object rows of `scene`'s first `n_frames` frames as a
+    KITTI-tracking ``label_02`` file, with Y at the bottom centre of the
+    box, which ``datasets.kitti.read_kitti_object_rows`` reads back."""
+    rows = offline_detection_rows(scene)
+    lines = []
+    for r in rows[(rows[:, 1] >= 0) & (rows[:, 0] < n_frames)]:
+        x0, y0, w, h = r[5:9]
+        lines.append(
+            f"{int(r[0])} {int(r[1])} Car {r[2]:.2f} {int(r[3])} {r[4]:.6f} "
+            f"{x0:.2f} {y0:.2f} {x0 + w:.2f} {y0 + h:.2f} {r[10]:.2f} {r[11]:.2f} {r[9]:.2f} "
+            f"{r[12]:.6f} {r[13] + r[10] / 2.0:.6f} {r[14]:.6f} {r[15]:.6f}")
+    return "\n".join(lines) + "\n"
+
+
 def map_table_from_frame(frame, cam: CameraConfig, M: int = 2048,
                          T_cw: Optional[np.ndarray] = None):
     """Local-map table from one stereo frame: every valid feature with a

@@ -14,7 +14,7 @@ flax's eps 1e-5. Weights come from the JAX package's flat npz (keys are
 
 The crops are cut and resized on the host, as the JAX package does with
 PIL; ``pil_resize_bilinear`` is PIL's ``Image.BILINEAR`` resize of a
-float32 ("F") image written in numpy (the card's machine has no PIL).
+float32 ("F") image written in numpy, so that mode 3 needs no PIL.
 """
 
 from __future__ import annotations

@@ -242,10 +242,11 @@ def nms(pred: torch.Tensor, conf_threshold: float = 0.4, iou_threshold: float = 
     return boxes[fidx], np.maximum(final, 0.0), classes[fidx], final > 0
 
 
-def letterbox(img: np.ndarray, size: int = 640, device="cpu"):
+def letterbox(img: np.ndarray, size: int = 640, device="cuda"):
     """Resize keeping aspect, pad to (size, size) with 114-grey
     (reference src/YOLOdetector.cc:51): ((size, size, C) float32 tensor on
-    `device`, scale r, (left, top))."""
+    `device` (the card by default), scale r, (left, top))."""
+    device = resolve_device(device)
     h, w = img.shape[:2]
     r = min(size / h, size / w)
     nh, nw = int(round(h * r)), int(round(w * r))

@@ -3,10 +3,11 @@
 Port of ``pointslot_tpu/ops/frontend.py::StereoFrontend`` (the
 single-pair path, gated and ungated: ``_image_stage``, ``_frontend``,
 ``_stereo_from_patches`` and its ``_stereo_pre`` / ``_stereo_sad`` /
-``_stereo_fine`` phases) and ``dilate_mask_left``. The patch gather runs
-four times per pair: left keypoints, right keypoints, right SAD windows and
-the level-0 fine windows. On the card it reads the pyramid levels in place
-and no padded canvas is built.
+``_stereo_fine`` phases; ``batch``, the runner's ``--dp`` path) and
+``dilate_mask_left``. The patch gather runs four times per pair: left
+keypoints, right keypoints, right SAD windows and the level-0 fine windows.
+On the card it reads the pyramid levels in place and no padded canvas is
+built.
 
 A gate (an allowed-region mask per image) multiplies each level's FAST
 score map by the mask resized as ``jax.image.resize(..., "nearest")`` does.
@@ -107,6 +108,21 @@ class StereoFrontend:
         """The frontend on device tensors (H, W), any real dtype; gates are
         (H, W) bool tensors on the same device."""
         return StereoFrame(*self._frontend(left, right, gate, gate_right))
+
+    def batch(self, lefts, rights) -> StereoFrame:
+        """A batch of ungated stereo pairs, (B, H, W) each -> a StereoFrame
+        whose every field gains a leading batch axis. As the JAX package's
+        ``batch`` (a ``lax.scan`` of the single-pair program), the
+        single-pair frontend runs pair after pair on this frontend's
+        device, 4 patch-gather launches per pair, so each frame equals the
+        single-pair frontend's bit for bit."""
+        d = self.device
+        lefts, rights = to_tensor(lefts, None, d), to_tensor(rights, None, d)
+        if lefts.shape != rights.shape or lefts.dim() != 3:
+            raise ValueError(f"need two (B, H, W) batches of one shape, got "
+                             f"{tuple(lefts.shape)} and {tuple(rights.shape)}")
+        frames = [self.run(left, right) for left, right in zip(lefts, rights)]
+        return StereoFrame(*[torch.stack(field) for field in zip(*frames)])
 
     def _gate_scores(self, scores: List[torch.Tensor], gate, gate_right):
         """Each level's (2, h, w) scores times the nearest-resized masks."""

@@ -91,22 +91,28 @@ def _run_port(step, args):
     return convert.to_numpy(r), To.numpy(), vo.numpy(), no.numpy()
 
 
-def test_fused_frame_step_matches_reference(steps):
-    """On the inputs of the reference's two-dispatch test."""
-    jstep, step = steps
+@pytest.fixture(scope="module")
+def two_dispatch(steps):
+    """The two-dispatch inputs and the port's __call__ on them, run once for
+    the module."""
     args = _two_dispatch_inputs()
+    return args, _run_port(steps[1], args)
+
+
+def test_fused_frame_step_matches_reference(steps, two_dispatch):
+    """On the inputs of the reference's two-dispatch test."""
+    jstep, _ = steps
+    args, got = two_dispatch
     want = jstep(*args)
-    got = _run_port(step, args)
     _compare_poses(got, want)
     _compare_frames(got[0], _numpy(want[0]))
     assert patch.LAUNCHES == 0
 
 
-def test_step_then_phase_equals_call(steps):
+def test_step_then_phase_equals_call(steps, two_dispatch):
     """.step then .phase equals __call__ (same program, run in two calls)."""
     _, step = steps
-    args = _two_dispatch_inputs()
-    r1, T1, v1, n1 = _run_port(step, args)
+    args, (r1, T1, v1, n1) = two_dispatch
     r2 = step.step(*args[:8])
     T2, v2, n2 = step.phase(r2.xy, r2.level, r2.desc, r2.valid, r2.depth, r2.u_right,
                             *args[8:])

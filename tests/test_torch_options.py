@@ -9,8 +9,9 @@ binary, a gzip-compressed binary and a text vocabulary file,
 ``loop.vocab_as_tree`` with a file, and a distorted camera. The same
 configurations with the default device, the card, raise on a machine
 without one (the port never falls back to the CPU). What still raises
-``NotImplementedError``: ``runtime.pipeline_stages`` and a precomputed
-frame (tests/test_torch_system.py).
+``NotImplementedError``: ``runtime.pipeline_stages`` (ROADMAP item 15);
+a precomputed frame is used since the runner slice
+(tests/test_torch_system.py).
 
 About 25 s alone, on one torch thread.
 """

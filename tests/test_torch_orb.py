@@ -37,12 +37,41 @@ def _left(seed):
     return SyntheticRenderer(scene).render(0)[0]
 
 
+@pytest.fixture(scope="module")
+def reference_features(extractors):
+    """seed -> (left image, the reference's features of it), each computed
+    once for the module."""
+    jext, _ = extractors
+    done = {}
+
+    def get(seed):
+        if seed not in done:
+            left = _left(seed)
+            done[seed] = left, FeatureSet(*[np.asarray(x) for x in jext(left)])
+        return done[seed]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def frame7(extractors):
+    """Frame 1 of the seed-7 scene: the left image's reference levels, the
+    right image's level 0, and the port's detections on the left levels."""
+    _, ext = extractors
+    scene = make_scene(n_frames=2, n_points=2500, n_objects=2, seed=7)
+    left, right, _ = SyntheticRenderer(scene).render(1)
+    lv_l = jpyr.build_pyramid(jnp.asarray(left, jnp.float32), 8, 1.2)
+    xyl, xy = ext.detect(ext.scores([T(np.asarray(x)) for x in lv_l]))[:2]
+    right0 = jpyr.build_pyramid(jnp.asarray(right, jnp.float32), 8, 1.2)[0]
+    return lv_l, right0, xyl.numpy(), xy.numpy()
+
+
 def _flipped_bits(a: np.ndarray, b: np.ndarray) -> int:
     return int(np.unpackbits((a ^ b).view(np.uint8)).sum())
 
 
 @pytest.mark.parametrize("seed", sorted(SCENES))
-def test_orb_matches_reference(extractors, seed):
+def test_orb_matches_reference(extractors, reference_features, seed):
     """Keypoints, levels and validity are equal exactly. Descriptor bits
     may flip only where a BRIEF pair's two samples tie to within float32
     rounding (the bilinear taps and the blur sum in another order than the
@@ -51,9 +80,8 @@ def test_orb_matches_reference(extractors, seed):
     order). Responses agree to 1e-3: the pyramid's resize matmuls sum in
     another order than XLA's, moving coarse-level pixels by float32 ulps;
     fed the reference's own levels they are equal exactly (next test)."""
-    jext, ext = extractors
-    left = _left(seed)
-    want = FeatureSet(*[np.asarray(x) for x in jext(left)])
+    _, ext = extractors
+    left, want = reference_features(seed)
     got = convert.to_numpy(ext(left))
     np.testing.assert_array_equal(got.xy, want.xy)
     np.testing.assert_array_equal(got.level, want.level)
@@ -67,13 +95,12 @@ def test_orb_matches_reference(extractors, seed):
     assert patch.LAUNCHES == 0
 
 
-def test_orb_on_reference_levels_equal_exactly(extractors):
+def test_orb_on_reference_levels_equal_exactly(extractors, reference_features):
     """Fed the reference's pyramid levels, the port's selection gives the
     same keypoints and bit-identical responses."""
-    jext, ext = extractors
-    left = _left(3).astype(np.float32)
-    levels = jpyr.build_pyramid(jnp.asarray(left), 8, 1.2)
-    want = FeatureSet(*[np.asarray(x) for x in jext(left)])
+    _, ext = extractors
+    left, want = reference_features(3)
+    levels = jpyr.build_pyramid(jnp.asarray(left.astype(np.float32)), 8, 1.2)
     levels_t = [torch.from_numpy(np.array(x)) for x in levels]
     got = convert.to_numpy(FeatureSet(*ext._extract_from_scores(levels_t, ext.scores(levels_t))))
     np.testing.assert_array_equal(got.xy, want.xy)
@@ -130,24 +157,19 @@ def test_patch_canvas_and_gather_equal_exactly(extractors, rng):
 
 
 @pytest.mark.parametrize("source", ["left-levels", "level0-pair"])
-def test_level_source_gather_equals_reference(extractors, source):
+def test_level_source_gather_equals_reference(frame7, source):
     """The gather from a patch source (planes where they lie, here on the
     CPU through the plain version) equals the reference's take path on the
     canvas JAX builds, exactly: a frame's real keypoints, edge centres and
     negative wraps, for the left image's 8 levels (the ORB gathers) and for
     the two level-0 images (the fine windows; the third column picks the
     image)."""
-    _, ext = extractors
-    scene = make_scene(n_frames=2, n_points=2500, n_objects=2, seed=7)
-    left, right, _ = SyntheticRenderer(scene).render(1)
-    lv_l = jpyr.build_pyramid(jnp.asarray(left, jnp.float32), 8, 1.2)
-    xyl, xy = ext.detect(ext.scores([T(np.asarray(x)) for x in lv_l]))[:2]
+    lv_l, right0, xyl, xy = frame7
     if source == "left-levels":
         planes = lv_l
-        xyl = xyl.numpy()
     else:
-        planes = [lv_l[0], jpyr.build_pyramid(jnp.asarray(right, jnp.float32), 8, 1.2)[0]]
-        xy0 = np.round(xy.numpy()).astype(np.int32)
+        planes = [lv_l[0], right0]
+        xy0 = np.round(xy).astype(np.int32)
         xyl = np.stack([xy0[:, 0], xy0[:, 1], np.arange(len(xy0)) % 2], axis=1)
     assert len(xyl) == 1000
     L = len(planes)

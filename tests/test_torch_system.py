@@ -35,7 +35,7 @@ from pointslot_tpu.slam import tracking as jtracking
 from pointslot_torch import config, convert
 from pointslot_torch.datasets import synthetic
 from pointslot_torch.io.writers import read_trajectory_kitti
-from pointslot_torch.ops.frontend import StereoFrontend
+from pointslot_torch.ops.frontend import StereoFrame, StereoFrontend
 from pointslot_torch.slam.fast_path import DeviceTrackingPath
 from pointslot_torch.slam.local_mapping import LocalMapper
 from pointslot_torch.slam.map_state import MapState
@@ -416,10 +416,31 @@ def test_default_configuration_builds_with_loop_closing(slot_mode):
 
 
 def test_precomputed_frame_and_cuda_without_card_raise(scene):
+    """A precomputed frame (StereoFrontend.batch's, as the runner's --dp
+    hands it over; as device tensors, then as numpy arrays) stands in for
+    the frontend, which then never runs, and gives the frame records and
+    poses of a System that ran its own frontend. Without a card, the
+    default device raises."""
     _, frames = scene
     system = System(_configs(config), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        system.track_stereo(*frames[0], 0.0, 0, precomputed=object())
+    own = System(_configs(config), device="cpu")
+    sf = system.frontend.batch(np.stack([f[0] for f in frames[:2]]),
+                               np.stack([f[1] for f in frames[:2]]))
+    pre = [StereoFrame(*[x[i] for x in sf]) for i in range(2)]
+    pre[1] = convert.to_numpy(pre[1])
+
+    def frontend_ran(*args, **kwargs):
+        raise AssertionError("the frontend ran on a precomputed frame")
+
+    system.frontend = frontend_ran
+    for i in range(2):
+        got = system.track_stereo(*frames[i], 0.1 * i, i, precomputed=pre[i])
+        want = own.track_stereo(*frames[i], 0.1 * i, i)
+        for name in ("xy", "level", "desc", "angle", "depth", "u_right", "valid", "point_idx",
+                     "T_cw"):
+            np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
+    system.shutdown()
+    own.shutdown()
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     with pytest.raises(RuntimeError, match="cuda"):
