@@ -6,6 +6,7 @@ stages on one CUDA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only r,s   # phases (r) and (s) alone
+    python3 chip_smoke.py --only t     # phase (t) alone, beside phase 3
 
 Run from the repository root on a machine with one NVIDIA H100 (or another
 sm_90a card). Phases, in order; any failure exits non-zero:
@@ -177,14 +178,29 @@ sm_90a card). Phases, in order; any failure exits non-zero:
    (tests/test_pipeline_stages.py:99-135), no stage failure raised by
    shutdown, 4 launches per frame; packets, bytes and ms per track_stereo
    printed;
-14. one JSON line with every kernel's numbers (and the times of the
-   detection stages, of phase (p), of the runner, of the mesh and of the
-   pipeline stages, which no kernel of the port covers);
-15. last line: {"ok": true, "device": {...}}.
+14. (t) the flat multi-image frontend and the last modules, at full width
+   with the default ORB: (t1) the multi-image patch_gather at the three call
+   sites of StereoFrontend.batch_flat on (q1)'s first 4 pairs (G = 8
+   images, image g's level l at canvas row g * 8 + l), exact against its
+   plain version there and on edge and out-of-range rows, timed warm and
+   L2-cold beside its bytes bound and the indexing yardstick on a prebuilt
+   canvas; (t2) batch_flat on (q1)'s first 8 frames as 2 batches of 4
+   pairs: 3 launches per batch and no canvas, keypoints equal to batch's,
+   angles, descriptor bits and stereo within the frontend tests' bounds,
+   ms per pair of both from paired runs; (t3) FusedFrameStep.multi over 4
+   frames of phase 4's sequence, bit-equal to 4 chained calls, ms per frame
+   of both; (t4) the gated ORB call on a box gate: no keypoint outside it,
+   keypoints against the port's CPU path; (t5) stagebench's frontend stage
+   ms and roofline.report of them on the H100 models (JSON without NaN);
+15. one JSON line with every kernel's numbers (and the times of the
+   detection stages, of phase (p), of the runner, of the mesh, of the
+   pipeline stages and of phase (t), which no kernel of the port covers);
+16. last line: {"ok": true, "device": {...}}.
 
-With ``--only`` (a comma list of r and s) it builds the kernels and runs
+With ``--only`` (a comma list of r, s and t) it builds the kernels and runs
 just those phases beside the runs they are read against -- (f) for (r),
-(a) for (s) -- with the same gates, and prints no result lines.
+(a) for (s), phase 3's single-pair gather sites for (t) -- with the same
+gates, and prints no result lines.
 
 Depth cuts, for the time limit: the mode-0 System runs 40 frames (async
 and (s2) 20), the mode-4 System 20; the loop scene runs whole (it needs
@@ -439,6 +455,8 @@ def check_patch_gather(seq) -> dict:
               f"(advanced indexing on a prebuilt canvas) cold {row['library_ms']:.6f} ms, warm "
               f"{row['library_warm_ms']:.6f} ms")
 
+    bodies = compare_gather_bodies(sites, flush)
+
     for K in (64, 266, 1000, 4000):
         xyl = xyl_l.repeat(-(-K // xyl_l.shape[0]), 1)[:K].contiguous()
         cold = _cold_ms(lambda: patch.gather_patches_cuda(planes_l, xyl), flush)
@@ -458,8 +476,40 @@ def check_patch_gather(seq) -> dict:
     print(f"canvas the earlier design built per frame (8 pads, stack, level-0 copy; "
           f"timed alone, not on the path): {canvas_ms:.6f} ms warm, {canvas_cold_ms:.6f} ms "
           f"cold, {canvas_launches} kernel launches")
-    return dict(max_abs_err=max_err, sites=out, canvas_ms=canvas_ms,
+    return dict(max_abs_err=max_err, sites=out, g1_bodies=bodies, canvas_ms=canvas_ms,
                 canvas_cold_ms=canvas_cold_ms, canvas_launches=canvas_launches)
+
+
+def compare_gather_bodies(sites, flush, turns: int = 3) -> list:
+    """The kernel's two bodies at the single-pair sites, side by side: G = 1
+    launches the single-image instance; the same planes expanded to G = 2
+    with image stride 0 launch the multi-image body, which reads image 0
+    for these sites' rows (all below L). Held bit-equal, then timed
+    L2-cold and warm in turns (single, multi, multi, single), `turns`
+    times. The kernel keeps the single instance for G = 1 while the multi
+    body is slower here by more than the spread of the repeats."""
+    order = ("single", "multi", "multi", "single") * turns
+    rows = []
+    for name, (planes, xyl) in sites.items():
+        two = [p.expand(2, *p.shape) for p in planes]
+        body = {"single": lambda: patch.gather_patches_cuda(planes, xyl),
+                "multi": lambda: patch.gather_patches_cuda(two, xyl)}
+        if not torch.equal(body["single"](), body["multi"]()):
+            raise SystemExit(f"patch_gather: the two bodies disagree at G = 1 ({name})")
+        t = {f"{k}_{m}_ms": [] for k in body for m in ("cold", "warm")}
+        for k in order:
+            t[f"{k}_cold_ms"].append(_cold_ms(body[k], flush))
+            t[f"{k}_warm_ms"].append(_graph_ms(body[k]))
+        rows.append(dict(site=name, K=int(xyl.shape[0]), **t))
+        parts = []
+        for m in ("cold", "warm"):
+            one, multi = t[f"single_{m}_ms"], t[f"multi_{m}_ms"]
+            parts.append(f"{m}: single {min(one):.6f}-{max(one):.6f} ms, multi "
+                         f"{min(multi):.6f}-{max(multi):.6f} ms, multi / single "
+                         f"{np.mean(multi) / np.mean(one):.3f}")
+        print(f"patch_gather bodies at G = 1, {name}, K = {xyl.shape[0]}, bit-equal; "
+              + "; ".join(parts))
+    return rows
 
 
 class Sequence:
@@ -3515,9 +3565,294 @@ def run_pipeline_stages(card: str, scene, frames, a: dict, device="cuda") -> dic
     return dict(s1=s1, s2=s2)
 
 
+# ---------------------------------------------------------------------------
+# (t): the flat multi-image frontend, FusedFrameStep.multi, the gated ORB
+# call and the stage timings
+# ---------------------------------------------------------------------------
+
+FLAT_PAIRS, FLAT_BATCHES = 4, 2       # (t1), (t2): B = 4 pairs (G = 8 images), twice
+FLAT_SITES = ("flat ORB", "flat right SAD", "flat fine")   # the flat batch's gathers
+MULTI_FRAMES = 4                      # (t3): S frames of phase 4's sequence
+MAX_FLAT_ANGLE_GAP = 1e-4             # rad, tests/test_torch_orb.py:86
+MAX_FLAT_DESC_FLIPS = 1e-3            # of the valid bits, tests/test_torch_orb.py:84
+MAX_FLAT_DEPTH_FLIPS = 5e-3           # depth validity, tests/test_torch_fused.py:70
+GATE_BOX = (100, 300, 300, 900)       # (t4): rows, cols of the allowed region
+STAGE_N = 10                          # (t5): timeit_ms's n
+
+
+def record_flat_sites(fe, lefts: torch.Tensor, rights: torch.Tensor) -> dict:
+    """The three patch gathers of one flat batch, as batch_flat makes them:
+    {site: (planes, xyl)}, in call order."""
+    calls = []
+    launch = patch.gather_patches_cuda
+
+    def record(planes, xyl):
+        calls.append((tuple(planes), xyl))
+        return launch(planes, xyl)
+
+    patch.gather_patches_cuda = record
+    try:
+        fe.batch_flat(lefts, rights)
+    finally:
+        patch.gather_patches_cuda = launch
+    torch.cuda.synchronize()
+    if len(calls) != len(FLAT_SITES):
+        raise SystemExit(f"expected {len(FLAT_SITES)} patch gathers per flat batch, got "
+                         f"{len(calls)}")
+    return dict(zip(FLAT_SITES, calls))
+
+
+def check_flat_gather(fe, lefts: torch.Tensor, rights: torch.Tensor) -> list:
+    """(t1) The multi-image gather at the flat batch's three call sites
+    (recorded from batch_flat on B pairs) and on edge and out-of-range rows:
+    exact against its plain version, timed warm and L2-cold beside its
+    bytes bound and the indexing yardstick on a prebuilt canvas."""
+    sites = record_flat_sites(fe, lefts, rights)
+    planes, xyl0 = sites["flat ORB"]
+    G, L = planes[0].shape[0], len(planes)
+    Hp, Wp = patch.canvas_shape(planes)
+    R = G * L
+    edges = torch.tensor([[0, 0, 0], [Wp - 1, Hp - 1, R - 1], [Wp + 5, Hp + 9, R],
+                          [-1, -1, L], [-Wp - 3, -2, R + 3], [3, 4, -1], [17, -60, -R - 2],
+                          [40, 30, L + 7], [600, 200, R - L]], dtype=torch.int32,
+                         device=xyl0.device)
+    for name, (pl, xyl) in dict(sites, **{"flat edge rows": (planes, edges)}).items():
+        got = patch.gather_patches_cuda(pl, xyl)
+        want = patch.gather_patches_plain(pl, xyl)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f"(t1) the multi-image gather disagrees with its plain version "
+                             f"({name}): {float((got - want).abs().max())}")
+        print(f"(t1) patch_gather {name}: shape {tuple(got.shape)}, G = {G}, bit-equal to "
+              f"its plain version")
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=xyl0.device)
+    flush = lambda: scratch.fill_(1.0)   # noqa: E731
+    out = []
+    for name, (pl, xyl) in sites.items():
+        fn = lambda: patch.gather_patches_cuda(pl, xyl)  # noqa: E731
+        canvas = patch.stack_pyramid_for_patches_multi(list(pl))
+        library = lambda: patch.extract_patches_stack_plain(canvas, xyl)  # noqa: E731
+        if not torch.equal(library(), fn()):
+            raise SystemExit(f"(t1) patch_gather disagrees with the indexing call ({name})")
+        # the canvas rows as 2-D planes, image g's level l at row g * L + l
+        rows = [p[g] for g in range(G) for p in pl]
+        row = dict(site=name, K=int(xyl.shape[0]), G=G, cold_ms=_cold_ms(fn, flush),
+                   warm_ms=_graph_ms(fn),
+                   plain_ms=_graph_ms(lambda: patch.gather_patches_plain(pl, xyl), reps=5),
+                   library_ms=_cold_ms(library, flush), library_warm_ms=_graph_ms(library),
+                   bound_ms=_patch_bound_ms(rows, xyl))
+        del canvas
+        out.append(row)
+        print(f"(t1) patch_gather {name}, G = {G}, G*K = {row['K']}: cold "
+              f"{row['cold_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms (bytes), cold/bound "
+              f"{row['cold_ms'] / row['bound_ms']:.2f}; warm {row['warm_ms']:.6f} ms; plain "
+              f"{row['plain_ms']:.6f} ms; library (advanced indexing on a prebuilt canvas) "
+              f"cold {row['library_ms']:.6f} ms, warm {row['library_warm_ms']:.6f} ms")
+    return out
+
+
+def _frame_gaps(got, want) -> dict:
+    """batch_flat's frames against batch's: keypoint fields exact, angles,
+    descriptor bits, stereo (the frontend tests' bounds)."""
+    same_kp = bool(torch.equal(got.xy, want.xy) and torch.equal(got.level, want.level)
+                   and torch.equal(got.valid, want.valid))
+    v = want.valid & got.valid
+    n_valid = int(v.sum())
+    flips = int(np.unpackbits(convert.desc_to_numpy(got.desc[v] ^ want.desc[v])
+                              .view(np.uint8)).sum())
+    sv = v & (got.depth > 0) & (want.depth > 0)
+    return dict(keypoints_equal=same_kp, response_equal=bool(torch.equal(got.response,
+                                                                          want.response)),
+                angle_gap=float((got.angle[v] - want.angle[v]).abs().max()) if n_valid else 0.0,
+                desc_flips=flips, valid_bits=256 * n_valid,
+                depth_flips=int(((got.depth > 0) != (want.depth > 0))[v].sum()),
+                u_right_gap=float((got.u_right[sv] - want.u_right[sv]).abs().max())
+                if bool(sv.any()) else 0.0,
+                depth_rel_gap=float(((got.depth[sv] - want.depth[sv]).abs()
+                                     / want.depth[sv]).max()) if bool(sv.any()) else 0.0,
+                n=int(got.valid.numel()))
+
+
+def run_flat_frontend(card: str, fe, frames, device="cuda") -> dict:
+    """(t2) batch_flat on the first FLAT_PAIRS * FLAT_BATCHES frames of
+    (q1), B = FLAT_PAIRS pairs at a time: 3 gathers per batch and no canvas
+    on the card, the frames against batch's; ms per pair of both, from
+    paired runs (CUDA events)."""
+    dev = torch.device(device)
+    out = dict(name="t2", launches=0, frames=0, batches=[])
+    for b in range(FLAT_BATCHES):
+        part = frames[b * FLAT_PAIRS:(b + 1) * FLAT_PAIRS]
+        lefts = torch.from_numpy(np.stack([f[0] for f in part])).to(dev)
+        rights = torch.from_numpy(np.stack([f[1] for f in part])).to(dev)
+        patch.LAUNCHES = 0
+        patch.CANVAS_BUILDS = 0
+        got = fe.batch_flat(lefts, rights)
+        _sync(device)
+        launches, builds = patch.LAUNCHES, patch.CANVAS_BUILDS
+        gaps = _frame_gaps(got, fe.batch(lefts, rights))
+        gaps.update(launches=launches, canvas_builds=builds)
+        out["batches"].append(gaps)
+        out["launches"] += launches
+        out["frames"] += FLAT_PAIRS
+        print(f"(t2) batch_flat on {device}, batch {b}, {FLAT_PAIRS} pairs: patch_gather "
+              f"launches {launches}, canvas builds {builds}; against batch: {gaps}")
+        bad = []
+        if device == "cuda" and (launches != 3 or builds != 0):
+            bad.append(f"{launches} launches and {builds} canvas builds, expected 3 and 0")
+        if not gaps["keypoints_equal"]:
+            bad.append("keypoints differ from batch's")
+        if not (gaps["angle_gap"] <= MAX_FLAT_ANGLE_GAP
+                and gaps["desc_flips"] <= MAX_FLAT_DESC_FLIPS * gaps["valid_bits"]
+                and gaps["depth_flips"] <= MAX_FLAT_DEPTH_FLIPS * gaps["n"]
+                and gaps["u_right_gap"] <= 1e-3 and gaps["depth_rel_gap"] <= 1e-4):
+            bad.append("angles, descriptors or stereo past the frontend tests' bounds")
+        if bad:
+            raise SystemExit("(t2): " + "; ".join(bad))
+    if device == "cuda":
+        flat_ms, batch_ms = [], []
+        for _ in range(2):      # flat, batch, batch, flat
+            flat_ms.append(_event_ms(lambda: fe.batch_flat(lefts, rights), 5, 1))
+            batch_ms.append(_event_ms(lambda: fe.batch(lefts, rights), 5, 1))
+            batch_ms.append(_event_ms(lambda: fe.batch(lefts, rights), 5, 1))
+            flat_ms.append(_event_ms(lambda: fe.batch_flat(lefts, rights), 5, 1))
+        out["flat_ms_per_pair"] = float(np.median(flat_ms)) / FLAT_PAIRS
+        out["batch_ms_per_pair"] = float(np.median(batch_ms)) / FLAT_PAIRS
+        print(f"(t2) on {card}: ms per pair, batch_flat {out['flat_ms_per_pair']:.3f}, batch "
+              f"{out['batch_ms_per_pair']:.3f} (CUDA events, host launches included; paired "
+              f"runs, flat / batch / batch / flat, medians of 5 after 1)")
+    return out
+
+
+def run_multi(card: str, seq: Sequence, device="cuda") -> dict:
+    """(t3) FusedFrameStep.multi over MULTI_FRAMES frames of phase 4's
+    sequence from frame 0's tables, against as many chained __call__s from
+    the same state: equal bit for bit; ms per frame of both."""
+    full = seq.full
+    left0, right0 = seq.frames[0][:2]
+    seq.keyframe(0, convert.to_numpy(full.frontend(left0, right0)))
+    eye = torch.eye(4, device=seq.dev)
+    ins = [seq.inputs(i) for i in range(1, MULTI_FRAMES + 1)]
+    lefts = torch.stack([x[0] for x in ins])
+    rights = torch.stack([x[1] for x in ins])
+
+    def chained():
+        T, vel, To, vo = eye, eye, seq.To, seq.vo
+        poses, n_cam, n_obj = [], [], []
+        for left, right in ins:
+            r, To, vo, n_o = full(left, right, T, vel, *seq.map, *seq.obj, To, vo)
+            T, vel = r.T_cw, r.velocity
+            poses.append(T)
+            n_cam.append(r.n_inliers)
+            n_obj.append(n_o)
+        return (T, vel, To, vo), (torch.stack(poses), torch.stack(n_cam), torch.stack(n_obj))
+
+    def multi():
+        return full.multi(lefts, rights, eye, eye, *seq.map, *seq.obj, seq.To, seq.vo)
+
+    got, want = multi(), chained()
+    equal = all(torch.equal(a, b) for a, b in zip(got[0] + got[1], want[0] + want[1]))
+    errs = [seq.gt_error(i + 1, got[1][0][i]) for i in range(MULTI_FRAMES)]
+    out = dict(name="t3", equal=equal, gt_errors=errs, n_inliers=got[1][1].tolist(),
+               obj_n_inliers=got[1][2].tolist())
+    if device == "cuda":
+        m_ms, c_ms = [], []
+        for _ in range(2):      # multi, chained, chained, multi
+            m_ms.append(_event_ms(multi, 2, 1))
+            c_ms.append(_event_ms(chained, 2, 1))
+            c_ms.append(_event_ms(chained, 2, 1))
+            m_ms.append(_event_ms(multi, 2, 1))
+        out["multi_ms_per_frame"] = float(np.median(m_ms)) / MULTI_FRAMES
+        out["chained_ms_per_frame"] = float(np.median(c_ms)) / MULTI_FRAMES
+    print(f"(t3) FusedFrameStep.multi on {device}, S = {MULTI_FRAMES}: bit-equal to "
+          f"{MULTI_FRAMES} chained calls {equal}; translation errors "
+          f"{[round(e, 4) for e in errs]} m, camera inliers {out['n_inliers']}, object inliers "
+          f"{out['obj_n_inliers']}; ms per frame multi {out.get('multi_ms_per_frame')}, "
+          f"chained {out.get('chained_ms_per_frame')} (CUDA events, paired runs)")
+    if not equal or max(errs) >= MAX_TRANS_ERR_M:
+        raise SystemExit(f"(t3): bit-equal {equal}, translation errors {errs}")
+    return out
+
+
+def _gate_violations(ext, feats, gate: torch.Tensor) -> int:
+    """Valid keypoints whose level pixel the gate, resized to the level as
+    the extractor resizes it, does not allow."""
+    bad = 0
+    for lvl, (rows, cols) in enumerate(ext.gate_index):
+        sel = feats.valid & (feats.level == lvl)
+        if not bool(sel.any()):
+            continue
+        xy = feats.xy[sel] / ext._level_scale[lvl]
+        x = torch.round(xy[:, 0]).long().clamp(0, cols.numel() - 1)
+        y = torch.round(xy[:, 1]).long().clamp(0, rows.numel() - 1)
+        bad += int((~gate[rows[y], cols[x]]).sum())
+    return bad
+
+
+def run_gated_orb(card: str, frames, device="cuda") -> dict:
+    """(t4) ORBExtractor(img, gate) with a box gate on (q1)'s first left
+    image: every keypoint inside the gate; the keypoints against the
+    port's CPU path."""
+    cam = CameraConfig()
+    img = frames[0][0]
+    gate = np.zeros((cam.height, cam.width), bool)
+    r0, r1, c0, c1 = GATE_BOX
+    gate[r0:r1, c0:c1] = True
+    got = ORBExtractor(cam.height, cam.width, device=device)(img, gate)
+    cpu_ext = ORBExtractor(cam.height, cam.width, device="cpu")
+    want = cpu_ext(img, gate)
+    g = type(got)(*[x.cpu() for x in got])
+    bad = _gate_violations(cpu_ext, g, torch.from_numpy(gate))
+    differ = int((~((g.xy == want.xy).all(dim=1) & (g.level == want.level)
+                    & (g.valid == want.valid))).sum())
+    out = dict(name="t4", valid=int(g.valid.sum()), outside=bad, differing=differ,
+               capacity=int(g.valid.numel()))
+    print(f"(t4) gated ORB on {device}, box rows {r0}:{r1} cols {c0}:{c1}: {out['valid']} "
+          f"valid keypoints, {bad} outside the gate, {differ} of {out['capacity']} differing "
+          f"from the CPU path (bound {MAX_KEYPOINTS_DIFFERING})")
+    if bad or out["valid"] == 0 or differ > MAX_KEYPOINTS_DIFFERING * out["capacity"]:
+        raise SystemExit(f"(t4): {out}")
+    return out
+
+
+def run_stage_times(card: str, fe, frames) -> dict:
+    """(t5) frontend_stage_ms on (q1)'s first pair and roofline.report of
+    the frontend's H100 models at those times; the JSON holds no NaN."""
+    from pointslot_torch.utils import roofline, stagebench
+
+    left, right = (torch.from_numpy(x).cuda() for x in frames[0][:2])
+    stages = stagebench.frontend_stage_ms(fe, left, right, n=STAGE_N)
+    models = roofline.h100_frontend_models(fe)
+    report = roofline.report({k: (models[k], ms) for k, ms in stages.items()})
+    line = json.dumps({"stages_ms": stages, "roofline": report}, allow_nan=False)
+    print(f"(t5) frontend stage ms on {card} (prefix deltas, CUDA events, n = {STAGE_N}): "
+          f"{line}")
+    return dict(stages_ms=stages, roofline=report)
+
+
+def run_flat(card: str, seq: Sequence, frames, device="cuda") -> dict:
+    """Phase (t): (t1)-(t5) at full width with the default ORB."""
+    t0 = time.perf_counter()
+    cam = CameraConfig()
+    fe = StereoFrontend(cam.height, cam.width, cam.fx, cam.bf, device=device)
+    out = {}
+    if device == "cuda":
+        part = frames[:FLAT_PAIRS]
+        lefts = torch.from_numpy(np.stack([f[0] for f in part])).cuda()
+        rights = torch.from_numpy(np.stack([f[1] for f in part])).cuda()
+        out["t1"] = check_flat_gather(fe, lefts, rights)
+    out["t2"] = run_flat_frontend(card, fe, frames, device)
+    out["t3"] = run_multi(card, seq, device)
+    out["t4"] = run_gated_orb(card, frames, device)
+    if device == "cuda":
+        out["t5"] = run_stage_times(card, fe, frames)
+    print(f"phase (t) took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run_selected(card: str, only: set) -> None:
-    """Phases (r) and (s) alone (``--only``), each beside the run it is read
-    against: (f) for (r), (a) for (s)."""
+    """Phases (r), (s) and (t) alone (``--only``), each beside the run it is
+    read against: (f) for (r), (a) for (s), phase 3's single-pair gather
+    sites for (t)."""
     if "r" in only:
         _, frames_o = render_object_frames(OBJECT_FRAMES)
         scene, frames = render_loop_frames()
@@ -3536,15 +3871,22 @@ def run_selected(card: str, only: set) -> None:
         t0 = time.perf_counter()
         run_pipeline_stages(card, scene, frames, a)
         print(f"phase (s) took {time.perf_counter() - t0:.1f} s")
+    if "t" in only:
+        cam = CameraConfig()
+        full = FusedFrameStep(SystemConfig().replace(camera=cam), device="cuda")
+        seq = Sequence(full, cam, n_frames=WARMUP_FRAMES + TIMED_FRAMES + 1)
+        check_patch_gather(seq)
+        run_flat(card, seq, render_object_frames(OBJECT_FRAMES)[1])
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description="pointslot_torch on one CUDA card")
     parser.add_argument("--only", default="",
-                        help="comma list of phases to run alone: r (the mesh), s (the stages)")
+                        help="comma list of phases to run alone: r (the mesh), s (the stages), "
+                             "t (the flat frontend, multi, the gated ORB call, stage times)")
     only = {p for p in parser.parse_args().only.split(",") if p}
-    if only - {"r", "s"}:
-        parser.error(f"--only takes r and s, not {sorted(only - {'r', 's'})}")
+    if only - {"r", "s", "t"}:
+        parser.error(f"--only takes r, s and t, not {sorted(only - {'r', 's', 't'})}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -3627,6 +3969,8 @@ def main() -> int:
     stages = run_pipeline_stages(card, systems["scene"], systems["frames"], systems["a"])
     runs.update(stages)
     print(f"phase (s) took {time.perf_counter() - t0:.1f} s")
+    flat = run_flat(card, seq, objects["frames"])
+    runs["t2"] = flat["t2"]
 
     left = kernel["sites"][0]
     line = {"kernels": [{
@@ -3639,7 +3983,8 @@ def main() -> int:
         "ms": left["cold_ms"], "kernel_ms": left["cold_ms"],
         "warm_ms": left["warm_ms"], "plain_ms": left["plain_ms"],
         "bound_ms": left["bound_ms"], "bound_by": "bytes", "library_ms": left["library_ms"],
-        "canvas_builds": builds, "sites": kernel["sites"],
+        "canvas_builds": builds, "sites": kernel["sites"] + flat["t1"],
+        "g1_bodies": kernel["g1_bodies"],
         "launches_system": {k: r["launches"] for k, r in runs.items()},
         "frames_system": {k: r["frames"] for k, r in runs.items()},
         "earlier_canvas": {"ms": kernel["canvas_ms"], "cold_ms": kernel["canvas_cold_ms"],
@@ -3665,7 +4010,11 @@ def main() -> int:
                             "f_track_ms": loop["f"]["track_ms"], "f_steps": loop["f"]["steps"]}},
             "pipeline": {k: {f: v[f] for f in ("track_ms", "ate", "packets", "bytes_sent",
                                                 "bytes_received", "high_points", "drain_s")}
-                         for k, v in stages.items()}},
+                         for k, v in stages.items()},
+            "flat": {"t2": {k: flat["t2"][k] for k in ("flat_ms_per_pair", "batch_ms_per_pair")},
+                     "t3": {k: flat["t3"][k] for k in ("multi_ms_per_frame",
+                                                        "chained_ms_per_frame")},
+                     "t5": flat["t5"]}},
     }]}
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,18 @@
 // plane_l[r - 24, c - 24] inside the plane and 0 in the padding. The padding
 // is written as zeros during the copy and never read.
 //
+// Multi-image form (the flat frontend, stack_pyramid_for_patches_multi at
+// pallas_patch.py:45): each plane l holds G images, image g at
+// ptr[l] + g * img_stride[l]. The canvas has G * L rows, image g's level l
+// at row g * L + l; a patch's row is clamped to [0, G * L) and read from
+// image row / L, level row % L. One image (G = 1) is the single-pair call;
+// it launches the kernel's single-image instance, which has no division and
+// reads no image stride, so its code is the earlier single-image kernel's.
+// Run at G = 1, the multi-image body was slower than this instance on the
+// H100 by more than the spread of repeats: warm at the four single-pair
+// sites, L2-cold at the three with K = 1000. chip_smoke.py's phase 3 times
+// the two bodies there in turns (PERF.md).
+//
 // Bound: bytes. A patch moves 9216 bytes out and at most as many in, with
 // no arithmetic. The earlier design (one warp per patch, a chain of 72
 // dependent scalar load-store round trips per lane) was bound by latency,
@@ -52,12 +64,14 @@ static_assert(kTile % kThreads == 0, "a block copies whole tiles");
 static_assert((kTile * 4) % 16 == 0, "bulk copies move multiples of 16 bytes");
 
 struct Planes {
-  const float* ptr[kMaxPlanes];
-  long long pitch[kMaxPlanes];  // row stride, floats
+  const float* ptr[kMaxPlanes];       // image 0 of each level
+  long long pitch[kMaxPlanes];        // row stride, floats
+  long long img_stride[kMaxPlanes];   // image stride, floats
   int h[kMaxPlanes];
   int w[kMaxPlanes];
-  int n;                        // L
-  int Hp, Wp;                   // the canvas the planes stand for
+  int n;                              // L
+  int rows;                           // G * L, the canvas's row count
+  int Hp, Wp;                         // the canvas the planes stand for
 };
 
 __device__ __forceinline__ int clamp_index(int i, int n) {
@@ -70,14 +84,23 @@ __device__ __forceinline__ void copy4_async(uint32_t dst, const float* src, int 
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 
+template <bool kMulti>
 __global__ void __launch_bounds__(kThreads, 8)
 patch_gather_kernel(const Planes p, const int* __restrict__ xyl, float* __restrict__ out) {
   __shared__ __align__(128) float tile[kTile];
   const int k = blockIdx.x;
   const int x = __ldg(xyl + 3 * k);
   const int y = __ldg(xyl + 3 * k + 1);
-  const int l = clamp_index(__ldg(xyl + 3 * k + 2), p.n);
-  const float* plane = p.ptr[l];
+  const int row = clamp_index(__ldg(xyl + 3 * k + 2), p.rows);
+  int l = row;
+  const float* plane;
+  if constexpr (kMulti) {
+    const int g = row / p.n;
+    l = row - g * p.n;
+    plane = p.ptr[l] + g * p.img_stride[l];
+  } else {
+    plane = p.ptr[l];
+  }
   const long long pitch = p.pitch[l];
   const unsigned h = p.h[l], w = p.w[l];
   const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
@@ -110,26 +133,36 @@ patch_gather_kernel(const Planes p, const int* __restrict__ xyl, float* __restri
 
 }  // namespace
 
-// planes/pitches/heights/widths: L host arrays describing the planes (device
-// pointers to float32, row pitch in floats); (Hp, Wp): the canvas size;
-// xyl: (K, 3) int32 on the device (x, y, plane); out: (K, 48, 48) float32 on
-// the device, 16-byte aligned. Launches on `stream` and returns
-// cudaGetLastError() (0 on success). K must be positive, 1 <= L <= 8.
+// planes/pitches/img_strides/heights/widths: L host arrays describing the
+// planes (device pointers to image 0's float32 plane, row pitch and image
+// stride in floats); G: images per plane; (Hp, Wp): the canvas size;
+// xyl: (K, 3) int32 on the device (x, y, canvas row); out: (K, 48, 48)
+// float32 on the device, 16-byte aligned. Launches on `stream` and returns
+// cudaGetLastError() (0 on success). K must be positive, 1 <= L <= 8, G >= 1.
 extern "C" int patch_gather(const void* const* planes, const long long* pitches,
-                            const int* heights, const int* widths, int L, int Hp, int Wp,
+                            const long long* img_strides, const int* heights,
+                            const int* widths, int L, int G, int Hp, int Wp,
                             const void* xyl, void* out, int K, void* stream) {
-  if (L < 1 || L > kMaxPlanes || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (L < 1 || L > kMaxPlanes || G < 1 || K < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   Planes p{};
   for (int l = 0; l < L; ++l) {
     p.ptr[l] = static_cast<const float*>(planes[l]);
     p.pitch[l] = pitches[l];
+    p.img_stride[l] = img_strides[l];
     p.h[l] = heights[l];
     p.w[l] = widths[l];
   }
   p.n = L;
+  p.rows = G * L;
   p.Hp = Hp;
   p.Wp = Wp;
-  patch_gather_kernel<<<K, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const int*>(xyl), static_cast<float*>(out));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* idx = static_cast<const int*>(xyl);
+  auto* dst = static_cast<float*>(out);
+  if (G == 1)
+    patch_gather_kernel<false><<<K, kThreads, 0, s>>>(p, idx, dst);
+  else
+    patch_gather_kernel<true><<<K, kThreads, 0, s>>>(p, idx, dst);
   return static_cast<int>(cudaGetLastError());
 }

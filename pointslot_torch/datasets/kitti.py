@@ -2,9 +2,10 @@
 
 A copy of ``pointslot_tpu/datasets/kitti.py`` that builds the port's
 ``slam.objects.Detection`` and decodes PNGs without PIL
-(``datasets/png16.py``: zlib and the C unfilter helper). Only Virtual
-KITTI 2's ``.jpg`` frames go through PIL; without PIL they raise an
-ImportError that names the ROADMAP line of a numpy JPEG decoder.
+(``datasets/png16.py``: zlib and the C unfilter helper). Virtual KITTI 2's
+``.jpg`` frames and the PNGs that decoder does not read (Adam7-interlaced,
+samples below 8 bits) go through PIL, as every file does in the reference;
+without PIL they raise an ImportError that says so.
 
 The JAX module's description follows.
 
@@ -42,18 +43,15 @@ _NONVEHICLE_TYPES = {
 }
 
 
-JPEG_DECODER_LINE = "ROADMAP Queue 1, item 16b: a numpy JPEG decoder"
-
-
 def _pil_open(path: str):
-    """PIL's Image.open for the formats other than PNG (Virtual KITTI 2's
-    JPEG frames); raises ImportError without PIL."""
+    """PIL's Image.open for JPEG (Virtual KITTI 2's frames) and the PNGs
+    png16 does not decode; raises ImportError without PIL."""
     try:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            f"{path}: decoding this format needs PIL, which is not installed; "
-            f"PNG needs no PIL ({JPEG_DECODER_LINE})") from e
+            f"{path}: reading JPEG, Adam7-interlaced PNGs and PNGs with samples below "
+            f"8 bits needs PIL, which is not installed (other PNGs need no PIL)") from e
     return Image.open(path)
 
 
@@ -62,9 +60,13 @@ def _is_png(path: str) -> bool:
 
 
 def _imread_gray(path: str) -> np.ndarray:
-    """PNG/JPG -> (H, W) uint8 grayscale without OpenCV (PNG without PIL)."""
+    """PNG/JPG -> (H, W) uint8 grayscale without OpenCV (PNG without PIL,
+    but for the kinds png16 leaves to PIL)."""
     if _is_png(path):
-        return png16.read_png_gray(path)
+        try:
+            return png16.read_png_gray(path)
+        except png16.NeedsPil:
+            pass
     img = _pil_open(path)
     if img.mode not in ("L", "I;16", "I"):
         img = img.convert("L")
@@ -77,7 +79,10 @@ def _imread_gray(path: str) -> np.ndarray:
 def _imread_raw(path: str) -> np.ndarray:
     """Instance masks: load preserving integer ids."""
     if _is_png(path):
-        return png16.read_png(path)
+        try:
+            return png16.read_png(path)
+        except png16.NeedsPil:
+            pass
     return np.asarray(_pil_open(path))
 
 

@@ -15,7 +15,8 @@ RGBA) and palette (the uint8 indices).
 ``read_png_gray`` is the readers' ``Image.open(path)``, then
 ``convert("L")`` unless the image is gray already, with PIL's integer
 rounding (``to_gray``). Interlaced (Adam7) PNGs and samples below 8 bits
-raise ``ValueError``.
+raise ``NeedsPil``, a ``ValueError``: the readers (``datasets/kitti.py``)
+read those through PIL.
 
 ``read_png16`` and ``write_png16`` keep the behaviour of
 ``pointslot_tpu/datasets/png16.py``: Virtual KITTI 2's forward flow maps
@@ -40,6 +41,11 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
 
 _unfilter_fn = None
+
+
+class NeedsPil(ValueError):
+    """A PNG this decoder does not read (Adam7 interlacing, samples below 8
+    bits); PIL reads it."""
 
 
 class PngImage(NamedTuple):
@@ -147,10 +153,10 @@ def decode_png(path: str, plain: bool = False) -> PngImage:
     if color_type not in _CHANNELS:
         raise ValueError(f"{path}: unsupported color type {color_type}")
     if bit_depth not in (8, 16) or (color_type == 3 and bit_depth != 8):
-        raise ValueError(f"{path}: bit depth {bit_depth} unsupported (8 or 16 bits per "
-                         f"sample only)")
+        raise NeedsPil(f"{path}: bit depth {bit_depth} unsupported (8 or 16 bits per "
+                       f"sample only)")
     if interlace:
-        raise ValueError(f"{path}: interlaced (Adam7) PNGs unsupported")
+        raise NeedsPil(f"{path}: interlaced (Adam7) PNGs unsupported")
     if color_type == 3 and palette is None:
         raise ValueError(f"{path}: palette image without a PLTE chunk")
     channels = _CHANNELS[color_type]

@@ -4,16 +4,18 @@ Port of ``pointslot_tpu/ops/frontend.py::StereoFrontend`` (the
 single-pair path, gated and ungated: ``_image_stage``, ``_frontend``,
 ``_stereo_from_patches`` and its ``_stereo_pre`` / ``_stereo_sad`` /
 ``_stereo_fine`` phases; ``batch`` and ``batch_sharded``, the runner's
-``--dp`` path) and ``dilate_mask_left``. The patch gather runs four times
-per pair: left keypoints, right keypoints, right SAD windows and the
-level-0 fine windows.
+``--dp`` path; the flat batch ``_run_batch_impl``, public as
+``batch_flat``) and ``dilate_mask_left``. The single-pair path runs the
+patch gather four times per pair: left keypoints, right keypoints, right
+SAD windows and the level-0 fine windows. The flat batch runs it three
+times per batch of B pairs, each over the multi-image source of all 2B
+images: every keypoint, every right SAD window, every fine window.
 On the card it reads the pyramid levels in place and no padded canvas is
 built.
 
 A gate (an allowed-region mask per image) multiplies each level's FAST
-score map by the mask resized as ``jax.image.resize(..., "nearest")`` does.
-That resize matches neither torch's ``nearest`` nor ``nearest-exact``; its
-index map is rebuilt here in numpy from jax's formula (``nearest_index``).
+score map by the mask resized as ``jax.image.resize(..., "nearest")`` does
+(``orb.nearest_index``, the extractor's ``gate_index``).
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ from pointslot_torch.config import ORBConfig
 from pointslot_torch.convert import to_tensor
 from pointslot_torch.device import resolve_device
 from pointslot_torch.ops import stereo as st
-from pointslot_torch.ops.orb import FeatureSet, ORBExtractor
-from pointslot_torch.ops.patch import gather_patches
+from pointslot_torch.ops.orb import FeatureSet, ORBExtractor, nearest_index  # noqa: F401
+from pointslot_torch.ops.patch import PATCH, gather_patches
 
 
 class StereoFrame(NamedTuple):
@@ -42,19 +44,6 @@ class StereoFrame(NamedTuple):
     valid: torch.Tensor     # (N,) bool
     u_right: torch.Tensor   # (N,) float32 (-1 = no stereo)
     depth: torch.Tensor     # (N,) float32 (-1 = no stereo)
-
-
-def nearest_index(n_in: int, n_out: int) -> np.ndarray:
-    """Source index of each of `n_out` samples along an axis of `n_in`, as
-    jax.image.resize's "nearest" takes them: floor((i + 0.5) * n_in / n_out)
-    in float32, where XLA folds the two constants into one factor,
-    n_in * (1 / n_out) (a float32 factor of 1.19999993 for 1242 -> 1035,
-    not 1.2); an axis whose size is kept is not resampled."""
-    if n_in == n_out:
-        return np.arange(n_out, dtype=np.int64)
-    factor = np.float32(n_in) * (np.float32(1.0) / np.float32(n_out))
-    offsets = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * factor
-    return np.floor(offsets).astype(np.int64)
 
 
 def dilate_mask_left(mask: np.ndarray, max_disparity: int = 128) -> np.ndarray:
@@ -87,11 +76,6 @@ class StereoFrontend:
             [cfg.scale_factor ** i for i in range(cfg.n_levels)],
             dtype=torch.float32).to(self.device)
         self._lshapes = torch.tensor(self.extractor.shapes, dtype=torch.int32).to(self.device)
-        # the gate's nearest-resize index maps, (rows, cols) per level
-        self._gate_index = [
-            tuple(torch.from_numpy(nearest_index(n, m)).to(self.device)
-                  for n, m in zip((height, width), shape))
-            for shape in self.extractor.shapes]
         self._replicas = {}   # batch_sharded's copies of this frontend, by device
 
     def __call__(self, left, right, gate=None, gate_right=None) -> StereoFrame:
@@ -126,6 +110,22 @@ class StereoFrontend:
         frames = [self.run(left, right) for left, right in zip(lefts, rights)]
         return StereoFrame(*[torch.stack(field) for field in zip(*frames)])
 
+    def batch_flat(self, lefts, rights) -> StereoFrame:
+        """A batch of ungated stereo pairs, (B, H, W) each, through the flat
+        form (``_run_batch_impl``): the image stage and the extraction run
+        on the flat (2B, ...) axis with ONE patch gather for all 2B images,
+        then one gather of every right SAD window and one of every level-0
+        fine window, 3 launches per batch; the stereo phases run pair by
+        pair. Returns a StereoFrame whose every field gains a leading batch
+        axis. Keypoints are ``batch``'s; angles and descriptors may differ
+        from it where a sum runs over more rows in another order."""
+        d = self.device
+        lefts, rights = to_tensor(lefts, None, d), to_tensor(rights, None, d)
+        if lefts.shape != rights.shape or lefts.dim() != 3:
+            raise ValueError(f"need two (B, H, W) batches of one shape, got "
+                             f"{tuple(lefts.shape)} and {tuple(rights.shape)}")
+        return StereoFrame(*self._run_batch_impl(lefts, rights))
+
     def batch_sharded(self, lefts, rights, mesh) -> StereoFrame:
         """``batch`` with the frame axis split over the mesh's first axis:
         each shard runs ``batch`` on its frames, on its device (a copy of
@@ -157,8 +157,7 @@ class StereoFrontend:
         ones = torch.ones(self.extractor.shapes[0], dtype=torch.float32, device=self.device)
         g_both = torch.stack([ones if gate is None else gate.to(torch.float32),
                               ones if gate_right is None else gate_right.to(torch.float32)])
-        return [s * g_both.index_select(1, rows).index_select(2, cols)
-                for s, (rows, cols) in zip(scores, self._gate_index)]
+        return self.extractor.gate_scores(scores, g_both)
 
     # ------------------------------------------------------------------
     def _image_stage(self, imgs: torch.Tensor):
@@ -186,6 +185,52 @@ class StereoFrontend:
         u_right, depth, _ = self._stereo_from_patches(fl, fr, levels_l, levels_r, patches_l)
         return (fl.xy, fl.response, fl.angle, fl.level, fl.desc, fl.valid,
                 u_right, depth)
+
+    def _run_batch_impl(self, lefts: torch.Tensor, rights: torch.Tensor):
+        """The flat batch: (B, H, W) lefts and rights -> the StereoFrame
+        fields, each with a leading B axis. Image g = 2b (left) and 2b + 1
+        (right) of the flat axis; its level l is row g * L + l of the
+        multi-image source that all three gathers read."""
+        ext = self.extractor
+        L = self.config.n_levels
+        B, H, W = lefts.shape
+        flat = torch.stack([lefts, rights], dim=1).reshape(2 * B, H, W)
+        levels, scores = self._image_stage(flat)
+        feats, patches, source = ext._extract_from_scores_multi(
+            levels, scores, return_patches=True)                   # leading axis 2B
+        feats_b = [x.reshape(B, 2, *x.shape[1:]) for x in feats]
+        fls = [FeatureSet(*(x[b, 0] for x in feats_b)) for b in range(B)]
+        frs = [FeatureSet(*(x[b, 1] for x in feats_b)) for b in range(B)]
+        patch_l = patches.reshape(B, 2, *patches.shape[1:])[:, 0]
+        K = patches.shape[1]
+        pair = torch.arange(B, dtype=torch.int32, device=lefts.device)[:, None]
+
+        pres = [self._stereo_pre(fl, fr) for fl, fr in zip(fls, frs)]
+        xyl_r = torch.stack([p["xyl_r"] for p in pres])              # (B, K, 3)
+        rows_r = xyl_r[..., 2] + (2 * pair + 1) * L
+        patch_r = gather_patches(source, torch.cat(
+            [xyl_r[..., :2], rows_r[..., None]], dim=-1).reshape(B * K, 3))
+        patch_r = patch_r.reshape(B, K, PATCH, PATCH)
+        mids = [self._stereo_sad(fl, pre, patch_l[b], patch_r[b])
+                for b, (fl, pre) in enumerate(zip(fls, pres))]
+        if "xyl_fine" in mids[0]:
+            xf = torch.stack([m["xyl_fine"] for m in mids])          # (B, 2n, 3)
+            n2 = xf.shape[1]
+            # level column 0 is the pair's left image, 1 its right: level 0
+            # of image 2b or 2b + 1
+            rows_f = (2 * pair + xf[..., 2]) * L
+            both = gather_patches(source, torch.cat(
+                [xf[..., :2], rows_f[..., None]], dim=-1).reshape(B * n2, 3))
+            both = both.reshape(B, n2, PATCH, PATCH)
+            outs = [self._stereo_fine(fl, mid, both[b])
+                    for b, (fl, mid) in enumerate(zip(fls, mids))]
+            u_right = torch.stack([o[0] for o in outs])
+            depth = torch.stack([o[1] for o in outs])
+        else:
+            u_right = torch.stack([m["u_right"] for m in mids])
+            depth = torch.stack([m["depth"] for m in mids])
+        xy, resp, angle, lvl, desc, valid = (x[:, 0] for x in feats_b)
+        return xy, resp, angle, lvl, desc, valid, u_right, depth
 
     def _stereo_from_patches(self, fl: FeatureSet, fr: FeatureSet,
                              levels_l: List[torch.Tensor], levels_r: List[torch.Tensor],

@@ -1,12 +1,13 @@
 """The mode-4 per-frame hot path: camera tracking step + batched object phase.
 
 Port of ``pointslot_tpu/ops/fused_track.py`` (``FusedTrackStep``, gated
-and ungated, ``FusedObjectPhase``, ``FusedFrameStep.__call__``). The camera
-half runs the stereo frontend (under a gate: detection restricted to the
-mask, then each feature checked against it at level-0 coordinates),
-projection matching at radius 7 against the local
-map, a pose LM, matching at radius 4 at the refined pose, a second LM and
-the constant-velocity update. The object half matches every object's point
+and ungated, ``FusedObjectPhase``, ``FusedFrameStep.__call__`` and
+``FusedFrameStep.multi``, S frames with the poses chained on the device).
+The camera half runs the stereo frontend (under a gate: detection
+restricted to the mask, then each feature checked against it at level-0
+coordinates), projection matching at radius 7 against the local map, a
+pose LM, matching at radius 4 at the refined pose, a second LM and the
+constant-velocity update. The object half matches every object's point
 table and solves all object poses in one batched LM.
 
 The step has no host sync (no ``.item()``, ``.cpu()`` or branch on device
@@ -226,3 +227,35 @@ class FusedFrameStep:
             obj_pos, obj_desc, obj_valid, T_obj, vel_obj,
         )
         return r, T_new, vel_new, n_inl
+
+    def multi(self, lefts, rights, T_prev, velocity,
+              map_pos, map_desc, map_level, map_valid,
+              obj_pos, obj_desc, obj_valid, T_obj, vel_obj=None):
+        """S consecutive frames, lefts/rights (S, H, W), the carry (T_cw,
+        velocity, T_obj, vel_obj) chained on the device from frame to frame
+        (the reference's ``lax.scan``). Returns ((T_cw', velocity', T_obj',
+        vel_obj'), (T_cw per frame, n_inliers per frame, obj_n_inliers per
+        frame)), all on the device; each frame is ``__call__``'s."""
+        d = self.device
+        lefts, rights = to_tensor(lefts, None, d), to_tensor(rights, None, d)
+        if lefts.shape != rights.shape or lefts.dim() != 3:
+            raise ValueError(f"need two (S, H, W) stacks of one shape, got "
+                             f"{tuple(lefts.shape)} and {tuple(rights.shape)}")
+        maps = (to_tensor(map_pos, torch.float32, d), to_tensor(map_desc, torch.int32, d),
+                to_tensor(map_level, torch.int32, d), to_tensor(map_valid, torch.bool, d))
+        objs = (to_tensor(obj_pos, torch.float32, d), to_tensor(obj_desc, torch.int32, d),
+                to_tensor(obj_valid, torch.bool, d))
+        T, vel = to_tensor(T_prev, torch.float32, d), to_tensor(velocity, torch.float32, d)
+        To = to_tensor(T_obj, torch.float32, d)
+        vo = (torch.eye(4, device=d).expand(objs[0].shape[0], 4, 4) if vel_obj is None
+              else to_tensor(vel_obj, torch.float32, d))
+        poses, n_cam, n_obj = [], [], []
+        for left, right in zip(lefts, rights):
+            r = self.step.run(left, right, T, vel, *maps)
+            To, vo, n_o = self.phase.run(r.xy, r.level, r.desc, r.valid, r.depth,
+                                         r.u_right, *objs, To, vo)
+            T, vel = r.T_cw, r.velocity
+            poses.append(T)
+            n_cam.append(r.n_inliers)
+            n_obj.append(n_o)
+        return (T, vel, To, vo), (torch.stack(poses), torch.stack(n_cam), torch.stack(n_obj))

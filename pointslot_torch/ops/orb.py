@@ -1,9 +1,13 @@
 """ORB feature extraction: pyramid -> FAST -> NMS -> per-cell select ->
 patch gather -> intensity-centroid angle -> 7x7 blur -> steered BRIEF.
 
-Port of ``pointslot_tpu/ops/orb.py`` (the ungated single-image path, with
-the learned or the gaussian BRIEF table; a gate is applied to the score
-maps by the frontend). Hazards kept in mind:
+Port of ``pointslot_tpu/ops/orb.py``: the single-image call, ungated or
+gated (``_extract_masked_impl``: the FAST scores times the allowed-region
+mask, resized per level as ``jax.image.resize(..., "nearest")`` resizes
+it, see ``nearest_index``), and the flat multi-image extraction
+(``_extract_from_scores_multi``: one patch gather over every keypoint of G
+images), with the learned or the gaussian BRIEF table. Hazards kept in
+mind:
 
 - ``lax.top_k`` breaks ties toward the lower index and ``torch.topk`` does
   not; the zero-padded cells always tie, so selection is a stable
@@ -106,6 +110,20 @@ def _moment_weights(patch: int) -> Tuple[np.ndarray, np.ndarray]:
     return (dx * mask).astype(np.float32), (dy * mask).astype(np.float32)
 
 
+def nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """Source index of each of `n_out` samples along an axis of `n_in`, as
+    jax.image.resize's "nearest" takes them: floor((i + 0.5) * n_in / n_out)
+    in float32, where XLA folds the two constants into one factor,
+    n_in * (1 / n_out) (a float32 factor of 1.19999993 for 1242 -> 1035,
+    not 1.2); an axis whose size is kept is not resampled. That resize
+    matches neither torch's ``nearest`` nor ``nearest-exact``."""
+    if n_in == n_out:
+        return np.arange(n_out, dtype=np.int64)
+    factor = np.float32(n_in) * (np.float32(1.0) / np.float32(n_out))
+    offsets = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * factor
+    return np.floor(offsets).astype(np.int64)
+
+
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(K, 256) bool -> (K, 8) int32 words, bit j of word w = bits[32 w + j]."""
     K = bits.shape[0]
@@ -145,12 +163,29 @@ class ORBExtractor:
             b = torch.zeros((h, w), dtype=torch.bool, device=dev)
             b[m:h - m, m:w - m] = True
             self._borders.append(b)
+        # a gate's nearest-resize index maps, (rows, cols) per level
+        self.gate_index = [
+            tuple(torch.from_numpy(nearest_index(n, k)).to(dev)
+                  for n, k in zip((height, width), shape))
+            for shape in self.shapes]
 
     # ------------------------------------------------------------------
-    def __call__(self, img) -> FeatureSet:
+    def __call__(self, img, gate=None) -> FeatureSet:
+        """img (H, W); gate: an optional (H, W) boolean allowed-region mask
+        (True = allowed) that restricts detection."""
         img = to_tensor(img, torch.float32, self.device)
         levels = self.pyramid(img)
-        return FeatureSet(*self._extract_from_scores(levels, self.scores(levels)))
+        scores = self.scores(levels)
+        if gate is not None:
+            scores = self.gate_scores(scores, to_tensor(gate, torch.bool, self.device))
+        return FeatureSet(*self._extract_from_scores(levels, scores))
+
+    def gate_scores(self, scores: List[torch.Tensor], gate: torch.Tensor) -> List[torch.Tensor]:
+        """Each level's (..., h, w) scores times the (..., H, W) mask resized
+        to the level (nearest, as the reference resizes it)."""
+        g = gate.to(torch.float32)
+        return [s * g.index_select(-2, rows).index_select(-1, cols)
+                for s, (rows, cols) in zip(scores, self.gate_index)]
 
     def pyramid(self, img: torch.Tensor) -> List[torch.Tensor]:
         return pyr_ops.build_pyramid(img, self._mats)
@@ -268,4 +303,27 @@ class ORBExtractor:
         feats = (xy, resp, angle, lvl, desc, valid)
         if return_patches:
             return feats, patches
+        return feats
+
+    def _extract_from_scores_multi(self, levels: List[torch.Tensor],
+                                   scores: List[torch.Tensor], return_patches: bool = False):
+        """Flat multi-image extraction: `levels` and `scores` are per-level
+        (G, h, w) tensors of G images. Selection runs on all G at once; ONE
+        patch gather reads every keypoint of every image from the
+        multi-image source (image g's level l at canvas row g * L + l), and
+        orientation, blur and BRIEF run on the (G * K) rows. The outputs
+        carry a leading G axis. With `return_patches` the patches
+        (G, K, 48, 48) and the source (the levels, which the stereo fetches
+        read again) come back too."""
+        G, L = levels[0].shape[0], len(levels)
+        xyl, xy, resp, lvl, valid = self.detect(scores)          # (G, K, ...)
+        K = xyl.shape[1]
+        rows = xyl[..., 2] + (torch.arange(G, dtype=torch.int32, device=xyl.device) * L)[:, None]
+        xyl_flat = torch.cat([xyl[..., :2], rows[..., None]], dim=-1).reshape(G * K, 3)
+        patches = gather_patches(levels, xyl_flat)               # (G * K, 48, 48)
+        angle = self._orientation_from_patches(patches)
+        desc = self._descriptors_from_patches(self._blur_patches(patches), angle)
+        feats = (xy, resp, angle.reshape(G, K), lvl, desc.reshape(G, K, 8), valid)
+        if return_patches:
+            return feats, patches.reshape(G, K, PATCH, PATCH), levels
         return feats

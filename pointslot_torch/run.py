@@ -27,7 +27,11 @@ Where it differs from the JAX runner:
   ``--dp``.
 - ``--viz`` and ``--live`` draw through PIL; without it the run stops
   before the first frame with the ImportError's message. PNG input needs
-  no PIL (``datasets/png16.py``); Virtual KITTI 2's ``.jpg`` frames do.
+  no PIL (``datasets/png16.py``); Virtual KITTI 2's ``.jpg`` frames, and
+  Adam7-interlaced PNGs and PNGs with samples below 8 bits, do.
+- The top-down map (``--viz``, ``--live``) is drawn from the map state
+  copied under ``System.map_lock`` (``viz.render.map_snapshot``); the JAX
+  runner draws it from the live state while async mapping writes it.
 
 Usage:
   python -m pointslot_torch.run --data /path/to/kitti --sequence 0000 \\
@@ -203,27 +207,22 @@ def main(argv=None):
                 live.push_frame(_render_overlay(frame_id, left, frame, dets,
                                                 system, cfg))
                 if frame_id % 20 == 0:
-                    from pointslot_torch.viz.render import draw_map_topdown
-
-                    live.push_map(draw_map_topdown(system))
+                    live.push_map(_draw_map(system))
             n += 1
             if args.max_frames and n >= args.max_frames:
                 break
         wall = time.perf_counter() - t0
         if live is not None:
-            from pointslot_torch.viz.render import draw_map_topdown
-
-            live.push_map(draw_map_topdown(system))
+            live.push_map(_draw_map(system))
     finally:
         if live is not None:
             live.close()
         if hasattr(frames, "close"):
             frames.close()    # stops the prefetch threads after --max-frames
     if args.viz:
-        from pointslot_torch.viz.render import draw_map_topdown, save_png
+        from pointslot_torch.viz.render import save_png
 
-        save_png(os.path.join(args.out, "map_topdown.png"),
-                 draw_map_topdown(system))
+        save_png(os.path.join(args.out, "map_topdown.png"), _draw_map(system))
 
     system.save_trajectory_kitti(os.path.join(args.out, "CameraTrajectory.txt"))
     if system._object_system is not None:
@@ -250,6 +249,14 @@ def main(argv=None):
     with open(os.path.join(args.out, "stats.json"), "w") as f:
         json.dump(stats, f, indent=1)
     return 0
+
+
+def _draw_map(system):
+    """The top-down map, drawn from the System's state copied under its
+    map_lock (async mapping writes it meanwhile), outside the lock."""
+    from pointslot_torch.viz.render import draw_map, map_snapshot
+
+    return draw_map(map_snapshot(system))
 
 
 def _evaluate(args, system, eval_ctx):

@@ -17,7 +17,8 @@ host (no GL); stitch the outputs into a video offline.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import contextlib
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -107,21 +108,65 @@ def draw_frame_cuboids(
     return np.asarray(im)
 
 
+class MapSnapshot(NamedTuple):
+    """The arrays a top-down map is drawn from."""
+
+    points: np.ndarray          # (N, 3) valid map points, world frame
+    keyframe_poses: np.ndarray  # (M, 4, 4) keyframe T_cw
+    trajectory: np.ndarray      # (F, 4, 4) camera T_cw per tracked frame
+    object_paths: list          # [(track_id, (n, 3) world positions by frame)]
+
+
+def _read_map(system) -> MapSnapshot:
+    m = system.map
+    traj = system.camera_trajectory()
+    paths = []
+    if system._object_system is not None:
+        for track in system._object_system.all_tracks:
+            paths.append((track.track_id, np.array(
+                [track.poses_world[f][:3, 3] for f in sorted(track.poses_world)]
+            ).reshape(-1, 3)))
+    return MapSnapshot(
+        points=m.pt_pos[m.pt_valid],
+        keyframe_poses=np.array([m.kf_pose[k] for k in m.keyframe_ids()]).reshape(-1, 4, 4),
+        trajectory=np.array([T for _, T, _ in traj]).reshape(-1, 4, 4),
+        object_paths=paths)
+
+
+def map_snapshot(system) -> MapSnapshot:
+    """The map's arrays, copied while ``system.map_lock`` is held (and the
+    object system's lock, inside it). The mapping worker and the GBA's merge
+    write them under that lock, so a drawing made from the copy, outside
+    the lock, is never torn and never stalls the worker."""
+    objs = system._object_system
+    with system.map_lock, (objs._obj_lock if objs is not None else contextlib.nullcontext()):
+        return _read_map(system)
+
+
 def draw_map_topdown(
     system,
     size: int = 800,
     gt_trajectory: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """MapDrawer analog: map points, keyframes, camera trajectory and object
-    trajectories projected to the x-z plane."""
+    trajectories projected to the x-z plane. Reads `system` as it stands;
+    a System that async mapping writes is drawn as
+    ``draw_map(map_snapshot(system))``."""
+    return draw_map(_read_map(system), size, gt_trajectory)
+
+
+def draw_map(
+    snap: MapSnapshot,
+    size: int = 800,
+    gt_trajectory: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """The top-down map of ``draw_map_topdown`` from a MapSnapshot."""
     from PIL import Image, ImageDraw
 
-    m = system.map
-    pts = m.pt_pos[m.pt_valid]
-    traj = system.camera_trajectory()
+    pts = snap.points
     cam_xy = np.array(
-        [np.linalg.inv(T)[:3, 3] for _, T, _ in traj]
-    ) if traj else np.zeros((0, 3))
+        [np.linalg.inv(T)[:3, 3] for T in snap.trajectory]
+    ) if len(snap.trajectory) else np.zeros((0, 3))
 
     xs, zs = [], []
     if len(pts):
@@ -154,19 +199,15 @@ def draw_map_topdown(
     if len(cam_xy) > 1:
         u, v = to_px(cam_xy[:, 0], cam_xy[:, 2])
         d.line(list(zip(u, v)), fill=(0, 220, 90), width=2)
-    for k in m.keyframe_ids():
-        T_wc = np.linalg.inv(m.kf_pose[k])
+    for T_cw in snap.keyframe_poses:
+        T_wc = np.linalg.inv(T_cw)
         u, v = to_px(T_wc[0, 3], T_wc[2, 3])
         d.rectangle([u - 2, v - 2, u + 2, v + 2], outline=(60, 160, 255))
-    if system._object_system is not None:
-        for track in system._object_system.all_tracks:
-            c = _COLORS[track.track_id % len(_COLORS)]
-            path = []
-            for f in sorted(track.poses_world):
-                p = track.poses_world[f][:3, 3]
-                path.append(to_px(p[0], p[2]))
-            if len(path) > 1:
-                d.line(path, fill=c, width=2)
+    for track_id, positions in snap.object_paths:
+        c = _COLORS[track_id % len(_COLORS)]
+        path = [to_px(p[0], p[2]) for p in positions]
+        if len(path) > 1:
+            d.line(path, fill=c, width=2)
     return np.asarray(img)
 
 

@@ -343,3 +343,123 @@ def test_sharded_solves_repeat_on_card():
     assert sa["cost_after"] == pytest.approx(local["cost_after"], rel=1e-2)
     np.testing.assert_array_equal(pg_a, pg_b)
     assert np.isfinite(pg_a).all()
+
+
+SMALL_CAM = dict(width=512, height=256, fx=300.0, fy=300.0, cx=256.0, cy=128.0, bf=60.0)
+
+
+def _small_pairs(n: int, seed: int):
+    """n random 512x256 stereo pairs (the right image shifted 4 px), uint8."""
+    rng = np.random.default_rng(seed)
+    lefts = rng.integers(0, 255, (n, 256, 512), dtype=np.uint8)
+    return lefts, np.roll(lefts, -4, axis=2)
+
+
+def test_multi_image_gather_equals_plain():
+    """The multi-image source (per-level (G, h, w) planes, image g's level
+    l at canvas row g * L + l) on the card equals the plain multi-image
+    canvas gather exactly, edge and out-of-range rows included: one launch,
+    no canvas."""
+    _need_card()
+    from pointslot_torch.ops.orb import ORBExtractor
+
+    G, K = 6, 700
+    g = torch.Generator().manual_seed(G)
+    imgs = (torch.rand((G, 256, 512), generator=g) * 255).cuda()
+    levels = ORBExtractor(256, 512, device="cuda").pyramid(imgs)
+    L = len(levels)
+    Hp, Wp = patch.canvas_shape(levels)
+    row = torch.randint(0, G * L, (K,), generator=g)
+    hw = torch.tensor([tuple(x.shape[-2:]) for x in levels])[row % L]
+    xyl = torch.stack([(torch.rand(K, generator=g) * hw[:, 1]).long(),
+                       (torch.rand(K, generator=g) * hw[:, 0]).long(), row], 1)
+    R = G * L
+    edges = torch.tensor([[0, 0, 0], [Wp - 1, Hp - 1, R - 1], [Wp + 5, Hp + 9, R],
+                          [-1, -1, L], [-Wp - 3, -2, R + 3], [3, 4, -1], [17, -60, -R - 2]])
+    xyl = torch.cat([xyl, edges]).to(torch.int32).cuda()
+    before, builds = patch.LAUNCHES, patch.CANVAS_BUILDS
+    got = patch.gather_patches(levels, xyl)
+    assert patch.LAUNCHES == before + 1
+    assert patch.CANVAS_BUILDS == builds
+    want = patch.gather_patches_plain(levels, xyl)
+    torch.cuda.synchronize()
+    assert got.shape == (K + 7, 48, 48)
+    assert torch.equal(got, want)
+    # image 0 alone through the multi-image form is the single-image call
+    one = xyl[:200].clone()
+    one[:, 2] %= L
+    assert torch.equal(patch.gather_patches(levels, one),
+                       patch.gather_patches([x[0] for x in levels], one))
+
+
+def test_batch_flat_launches_three_gathers():
+    """batch_flat on the card: 3 patch-gather launches for the batch, no
+    canvas, and batch's keypoints."""
+    _need_card()
+    from pointslot_torch.ops.frontend import StereoFrontend
+
+    fe = StereoFrontend(256, 512, SMALL_CAM["fx"], SMALL_CAM["bf"], device="cuda")
+    lefts, rights = (torch.from_numpy(x).cuda() for x in _small_pairs(3, 7))
+    before, builds = patch.LAUNCHES, patch.CANVAS_BUILDS
+    got = fe.batch_flat(lefts, rights)
+    torch.cuda.synchronize()
+    assert patch.LAUNCHES == before + 3
+    assert patch.CANVAS_BUILDS == builds
+    want = fe.batch(lefts, rights)
+    for name in ("xy", "level", "valid"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_multi_equals_chained_calls_on_card():
+    """FusedFrameStep.multi over 3 frames equals 3 chained __call__s bit
+    for bit on the card."""
+    _need_card()
+    full = FusedFrameStep(SystemConfig().replace(camera=CameraConfig(**SMALL_CAM)),
+                          device="cuda")
+    d = full.device
+    rng = np.random.default_rng(9)
+    lefts, rights = (torch.from_numpy(x).to(d) for x in _small_pairs(3, 8))
+    M, O, Mo = 256, 2, 64
+    tables = convert.map_tables(rng.uniform([-5, -2, 2], [5, 2, 20], (M, 3)),
+                                rng.integers(0, 2**32, (M, 8), dtype=np.uint32),
+                                np.zeros(M), np.ones(M, bool), d)
+    objects = convert.object_tables(rng.uniform(-1, 1, (O, Mo, 3)),
+                                    rng.integers(0, 2**32, (O, Mo, 8), dtype=np.uint32),
+                                    np.ones((O, Mo), bool), d)
+    eye = torch.eye(4, device=d)
+    To = eye.expand(O, 4, 4).clone()
+    To[:, 2, 3] = 8.0
+    carry, (poses, n_cam, n_obj) = full.multi(lefts, rights, eye, eye, *tables, *objects, To)
+    T, vel, To_c, vo = eye, eye, To, None
+    for i in range(3):
+        r, To_c, vo, n_o = full(lefts[i], rights[i], T, vel, *tables, *objects, To_c, vo)
+        T, vel = r.T_cw, r.velocity
+        assert torch.equal(poses[i], T)
+        assert torch.equal(n_cam[i], r.n_inliers)
+        assert torch.equal(n_obj[i], n_o)
+    for a, b in zip(carry, (T, vel, To_c, vo)):
+        assert torch.equal(a, b)
+
+
+def test_gated_orb_call_on_card():
+    """ORBExtractor(img, gate) on the card: every valid keypoint lies in
+    the gate (at its level, through the extractor's nearest index maps),
+    and the keypoints equal the CPU path's but for rounding ties."""
+    _need_card()
+    from pointslot_torch.ops.orb import FeatureSet, ORBExtractor
+
+    img = _small_pairs(1, 10)[0][0]
+    gate = np.zeros((256, 512), bool)
+    gate[40:200, 100:400] = True
+    ext = ORBExtractor(256, 512, device="cuda")
+    got = FeatureSet(*[x.cpu() for x in ext(img, gate)])
+    cpu = ORBExtractor(256, 512, device="cpu")
+    want = cpu(img, gate)
+    gate_t = torch.from_numpy(gate)
+    for lvl, (rows, cols) in enumerate(cpu.gate_index):
+        sel = got.valid & (got.level == lvl)
+        xy = torch.round(got.xy[sel] / cpu._level_scale[lvl]).long()
+        assert bool(gate_t[rows[xy[:, 1]], cols[xy[:, 0]]].all())
+    same = (got.xy == want.xy).all(dim=1) & (got.level == want.level) & (got.valid == want.valid)
+    assert int((~same).sum()) <= 0.005 * len(same)
+    assert int(got.valid.sum()) > 0

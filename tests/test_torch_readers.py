@@ -471,9 +471,12 @@ def test_virtual_kitti_matches_jax(tmp_path):
 
 
 def test_jpeg_without_pil_names_the_roadmap_line(tmp_path, monkeypatch):
+    """Without PIL a JPEG frame raises an ImportError that says PIL is
+    needed for JPEG (the numpy JPEG decoder it once pointed at was dropped
+    from the roadmap)."""
     Image.fromarray(np.zeros((8, 8), np.uint8)).save(tmp_path / "a.jpg")
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="numpy JPEG decoder"):
+    with pytest.raises(ImportError, match="JPEG.*needs PIL"):
         kitti._imread_gray(str(tmp_path / "a.jpg"))
     # PNG needs no PIL
     png16.write_png16(tmp_path / "m.png", np.full((4, 5), 300, np.uint16))
