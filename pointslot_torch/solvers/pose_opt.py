@@ -11,22 +11,34 @@ True)`` in the JAX package).
 The reference's early-exit ``lax.while_loop`` becomes exactly
 ``iters_per_stage`` iterations in which a lane freezes its whole carry once
 it is done. That is the same result (the vmapped JAX loop also stops
-changing a finished lane) and needs no host sync, so the step can later be
+changing a finished lane) and needs no host sync, so the step can be
 captured in a CUDA graph. The 6x6 solves use ``linalg.solve_ex``, which
 skips the error check that would sync with the host.
+
+On the card, the camera's form of the solve (one lane, no prior) replays a
+CUDA graph of that same body instead of launching its ~7,700 operations one
+by one: the edges are padded to a power of two (``GRAPH_BUCKETS``) with
+invalid copies of the first edge, one graph per bucket, captured for every
+bucket at the first such call. Every other call, and every call on the CPU,
+runs the body eagerly.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from pointslot_torch.geometry import se3
+from pointslot_torch.utils.profiling import PROFILER
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
+# edge counts of the graphed solve: powers of two from 16 to the first at or
+# above the camera tracker's edge cap (slam/tracking.py::POSE_EDGE_CAP, 1500)
+GRAPH_BUCKETS = tuple(16 << i for i in range(8))
 
 
 class PoseOptResult(NamedTuple):
@@ -41,7 +53,7 @@ def _bwhere(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)), a, b)
 
 
-def pose_optimize(
+def _pose_optimize_eager(
     T_init: torch.Tensor,      # (B, 4, 4)
     pts: torch.Tensor,         # (B, M, 3) points in the fixed frame
     obs: torch.Tensor,         # (B, M, 3) measurements (u, v, u_right)
@@ -160,3 +172,115 @@ def pose_optimize(
     active = valid & (chi2 <= gate) & ~behind
     return PoseOptResult(T=T, inliers=active,
                          n_inliers=active.sum(dim=-1, dtype=torch.int32), chi2=chi2)
+
+
+def pose_optimize(
+    T_init: torch.Tensor,      # (B, 4, 4)
+    pts: torch.Tensor,         # (B, M, 3) points in the fixed frame
+    obs: torch.Tensor,         # (B, M, 3) measurements (u, v, u_right)
+    is_stereo: torch.Tensor,   # (B, M) bool
+    inv_sigma2: torch.Tensor,  # (B, M) per-edge information scale
+    valid: torch.Tensor,       # (B, M) bool
+    fx: float, fy: float, cx: float, cy: float, bf: float,
+    stages: int = 4,
+    iters_per_stage: int = 10,
+    chi2_mono: float = CHI2_MONO,
+    chi2_stereo: float = CHI2_STEREO,
+    trans_prior: Optional[torch.Tensor] = None,   # (B, 3) prior on t of T
+    trans_prior_weight: float = 50.0,
+) -> PoseOptResult:
+    """The LM solve. On the card, one lane without a prior and with 1 to
+    ``GRAPH_BUCKETS[-1]`` edges replays a CUDA graph of the eager body on
+    the edges padded to their bucket; the result holds fresh tensors of
+    the caller's M. Everything else runs the body eagerly."""
+    edges = (T_init, pts, obs, is_stereo, inv_sigma2, valid)
+    scalars = (fx, fy, cx, cy, bf, stages, iters_per_stage, chi2_mono, chi2_stereo)
+    if pts.is_cuda:
+        if T_init.shape[0] == 1 and trans_prior is None and 0 < pts.shape[1] <= GRAPH_BUCKETS[-1]:
+            return _graph_solve(edges, scalars)
+        PROFILER.count("pose_eager_cuda")
+    return _pose_optimize_eager(*edges, *scalars, trans_prior, trans_prior_weight)
+
+
+class _PoseGraph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    edges: tuple             # static (T_init, pts, obs, is_stereo, inv_sigma2, valid)
+    out: PoseOptResult       # static outputs, overwritten by every replay
+
+
+# process-wide, as the entry point's signature leaves no place for a handle
+_GRAPHS: dict = {}           # (device, dtypes, scalars) -> {bucket: _PoseGraph}
+_REPLAYED: dict = {}         # device -> event recorded after the last replay's clones
+# held around capture and around copy, replay and clone, so that two threads
+# never share the static buffers
+_GRAPH_LOCK = threading.Lock()
+
+
+def graph_bucket(m: int) -> int:
+    """The padded edge count of an m-edge solve: the least bucket >= m."""
+    return next(n for n in GRAPH_BUCKETS if n >= m)
+
+
+def pad_edges_into(static: tuple, edges: tuple) -> None:
+    """Writes a solve's (T_init, pts, obs, is_stereo, inv_sigma2, valid)
+    into buffers of a bucket's edge count: the M edges, then copies of the
+    first edge marked invalid. Copies keep every intermediate of the solve
+    finite (a zero point would give 0 * inf), so the padding rows add exact
+    zeros to H, b and the cost."""
+    m = edges[1].shape[1]
+    static[0].copy_(edges[0])
+    for dst, src in zip(static[1:5], edges[1:5]):
+        dst[:, :m].copy_(src)
+        dst[:, m:].copy_(src[:, :1].expand_as(dst[:, m:]))
+    static[5][:, :m].copy_(edges[5])
+    static[5][:, m:].fill_(False)
+
+
+def _capture(edges: tuple, scalars: tuple) -> dict:
+    """One graph per bucket for these dtypes and scalars, sharing one memory
+    pool. Each bucket runs once eagerly on the capture stream first, so that
+    cuBLAS and cuSOLVER have set up their workspaces, and is replayed once
+    after its capture; the capture is thread-local, as other threads (the
+    global BA) may launch meanwhile."""
+    dev = edges[1].device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    pool = torch.cuda.graph_pool_handle()
+    graphs = {}
+    for n in GRAPH_BUCKETS:
+        static = (torch.eye(4, dtype=edges[0].dtype, device=dev)[None].clone(),) + tuple(
+            torch.zeros((1, n) + tuple(x.shape[2:]), dtype=x.dtype, device=dev)
+            for x in edges[1:])
+        with torch.cuda.stream(side):
+            _pose_optimize_eager(*static, *scalars)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode="thread_local"):
+            out = _pose_optimize_eager(*static, *scalars)
+        with torch.cuda.stream(side):
+            graph.replay()        # a graph's first launch uploads it: not in a frame
+        graphs[n] = _PoseGraph(graph, static, out)
+        PROFILER.count("pose_graph_captures")
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return graphs
+
+
+def _graph_solve(edges: tuple, scalars: tuple) -> PoseOptResult:
+    dev = edges[1].device
+    m = edges[1].shape[1]
+    key = (dev, tuple(x.dtype for x in edges), scalars)
+    with _GRAPH_LOCK, torch.cuda.device(dev):
+        graphs = _GRAPHS.get(key)
+        if graphs is None:
+            graphs = _GRAPHS[key] = _capture(edges, scalars)
+        g = graphs[graph_bucket(m)]
+        stream = torch.cuda.current_stream(dev)
+        # a replay on another stream waits for the last one's clones
+        replayed = _REPLAYED.setdefault(dev, torch.cuda.Event())
+        stream.wait_event(replayed)
+        pad_edges_into(g.edges, edges)
+        g.graph.replay()
+        res = PoseOptResult(T=g.out.T.clone(), inliers=g.out.inliers[:, :m].clone(),
+                            n_inliers=g.out.n_inliers.clone(), chi2=g.out.chi2[:, :m].clone())
+        replayed.record(stream)
+    PROFILER.count("pose_graph_replays")
+    return res

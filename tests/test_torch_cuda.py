@@ -463,3 +463,193 @@ def test_gated_orb_call_on_card():
     same = (got.xy == want.xy).all(dim=1) & (got.level == want.level) & (got.valid == want.valid)
     assert int((~same).sum()) <= 0.005 * len(same)
     assert int(got.valid.sum()) > 0
+
+
+POSE_CAM = dict(fx=721.5377, fy=721.5377, cx=609.5593, cy=172.854, bf=384.38148)
+
+
+@pytest.fixture()
+def counting():
+    """The port's PROFILER on for the test, its counters restored after."""
+    from pointslot_torch.utils.profiling import PROFILER
+
+    was, before = PROFILER.enabled, dict(PROFILER.counters)
+    PROFILER.enabled = True
+    yield PROFILER.counters
+    PROFILER.enabled = was
+    PROFILER.counters.clear()
+    PROFILER.counters.update(before)
+
+
+def _pose_edges(seed: int, m: int, lanes: int = 1):
+    """A camera-like pose solve of m edges a lane on the card: stereo and
+    mono edges, 0.5 px noise, a tenth of the edges 30-80 px off, the start
+    0.03 from the truth."""
+    from pointslot_torch.geometry import se3
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(lanes):
+        pts = np.stack([rng.uniform(-10, 10, m), rng.uniform(-3, 2, m),
+                        rng.uniform(4, 40, m)], 1).astype(np.float32)
+        T_true = se3.se3_exp(torch.from_numpy(rng.normal(size=6).astype(np.float32) * 0.1))
+        T0 = se3.se3_exp(torch.from_numpy(rng.normal(size=6).astype(np.float32) * 0.03)) @ T_true
+        pc = pts @ T_true[:3, :3].numpy().T + T_true[:3, 3].numpy()
+        fx, cx, cy, bf = (POSE_CAM[k] for k in ("fx", "cx", "cy", "bf"))
+        u, v = fx * pc[:, 0] / pc[:, 2] + cx, fx * pc[:, 1] / pc[:, 2] + cy
+        obs = np.stack([u, v, u - bf / pc[:, 2]], 1) + rng.normal(size=(m, 3)) * 0.5
+        bad = rng.choice(m, m // 10, replace=False)
+        obs[bad, :2] += rng.uniform(30, 80, (len(bad), 2)) * np.sign(rng.normal(size=(len(bad), 2)))
+        level = rng.integers(0, 8, m)
+        out.append((T0.numpy(), pts, obs.astype(np.float32), rng.random(m) < 0.7,
+                    (1.2 ** (-2.0 * level)).astype(np.float32), np.ones(m, bool)))
+    return tuple(torch.from_numpy(np.stack(x)).cuda() for x in zip(*out))
+
+
+def _padded_on_card(edges, n):
+    from pointslot_torch.solvers import pose_opt
+
+    static = (torch.empty_like(edges[0]),) + tuple(
+        torch.empty((1, n) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+        for x in edges[1:])
+    pose_opt.pad_edges_into(static, edges)
+    return static
+
+
+@pytest.mark.parametrize("n", [16 << i for i in range(8)])
+def test_pose_graph_replay_equals_eager(n, counting):
+    """Each bucket's replay gives, bit for bit, what the eager body gives on
+    the same padded inputs, cut to the caller's M; one call, one replay."""
+    _need_card()
+    from pointslot_torch.solvers import pose_opt
+
+    m = n - n // 4
+    edges = _pose_edges(n, m)
+    pose_opt.pose_optimize(*edges, **POSE_CAM)           # captures on a first call
+    before = counting["pose_graph_replays"]
+    got = pose_opt.pose_optimize(*edges, **POSE_CAM)
+    assert counting["pose_graph_replays"] == before + 1
+    want = pose_opt._pose_optimize_eager(*_padded_on_card(edges, n), **POSE_CAM)
+    torch.cuda.synchronize()
+    assert got.inliers.shape == got.chi2.shape == (1, m)
+    assert torch.equal(got.T, want.T)
+    assert torch.equal(got.inliers, want.inliers[:, :m])
+    assert torch.equal(got.chi2, want.chi2[:, :m])
+    assert torch.equal(got.n_inliers, want.n_inliers)
+    assert 0.5 * m < int(got.n_inliers[0]) < m
+
+
+def test_pose_graph_results_are_fresh(monkeypatch):
+    """A caller that keeps a call's answer, as the benchmark's capture
+    keeps each frame's T through a wrapper of pose_opt.pose_optimize,
+    finds it unchanged after a later replay of the same bucket."""
+    _need_card()
+    from pointslot_torch.solvers import pose_opt
+
+    kept = []
+    solve = pose_opt.pose_optimize
+
+    def wrapped(*args, **kwargs):
+        res = solve(*args, **kwargs)
+        kept.append(res.T)
+        return res
+
+    monkeypatch.setattr(pose_opt, "pose_optimize", wrapped)
+    pose_opt.pose_optimize(*_pose_edges(1, 600), **POSE_CAM)
+    first = kept[0].clone()
+    pose_opt.pose_optimize(*_pose_edges(2, 700), **POSE_CAM)
+    torch.cuda.synchronize()
+    assert torch.equal(kept[0], first)
+    assert not torch.equal(kept[1], first)
+
+
+def test_pose_graph_capture_beside_another_thread(counting):
+    """A capture made while another thread launches and allocates on the
+    card succeeds (the capture is thread-local), and replays right."""
+    _need_card()
+    import threading
+
+    from pointslot_torch.solvers import pose_opt
+
+    stop, ran = threading.Event(), []
+
+    def busy():
+        x = torch.randn((256, 256), device="cuda")
+        while not stop.is_set():
+            x = torch.tanh(x @ x)
+            ran.append(1)
+        torch.cuda.synchronize()
+
+    worker = threading.Thread(target=busy)
+    worker.start()
+    try:
+        while not ran:
+            pass
+        before = counting["pose_graph_captures"]
+        edges = _pose_edges(3, 300)
+        cam = dict(POSE_CAM, chi2_mono=5.99)                 # a key no other test uses
+        got = pose_opt.pose_optimize(*edges, **cam)
+    finally:
+        stop.set()
+        worker.join()
+    assert counting["pose_graph_captures"] == before + len(pose_opt.GRAPH_BUCKETS)
+    want = pose_opt._pose_optimize_eager(*_padded_on_card(edges, 512), **cam)
+    torch.cuda.synchronize()
+    assert torch.equal(got.T, want.T)
+
+
+def test_batched_solve_with_prior_stays_eager(counting):
+    """The object tracker's form (B = 3 with a translation prior) runs the
+    eager body: no replay, one eager CUDA call."""
+    _need_card()
+    from pointslot_torch.solvers import pose_opt
+
+    edges = _pose_edges(4, 120, lanes=3)
+    replays, eager = counting["pose_graph_replays"], counting["pose_eager_cuda"]
+    got = pose_opt.pose_optimize(*edges, **POSE_CAM, trans_prior=edges[0][:, :3, 3] + 0.05)
+    torch.cuda.synchronize()
+    assert counting["pose_graph_replays"] == replays
+    assert counting["pose_eager_cuda"] == eager + 1
+    assert got.T.shape == (3, 4, 4) and bool(torch.isfinite(got.T).all())
+
+
+def test_pose_graph_replays_from_threads_on_streams():
+    """Eight threads, each on a stream of its own, replay the same buckets
+    at once, 5 solves each, with a short switch interval: every answer
+    equals the one the same solve gives alone (no two replays share the
+    static buffers at a time, on the host or on the card)."""
+    _need_card()
+    import sys
+    import threading
+
+    from pointslot_torch.solvers import pose_opt
+
+    problems = [_pose_edges(40 + i, 500 + 37 * i) for i in range(8)]
+    alone = [pose_opt.pose_optimize(*e, **POSE_CAM).T for e in problems]
+    torch.cuda.synchronize()                 # the side streams read these
+    got, errors = {}, []
+
+    def solve(i):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                got[i] = [pose_opt.pose_optimize(*problems[i], **POSE_CAM).T for _ in range(5)]
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:   # noqa: BLE001  (reported by the assertion below)
+            errors.append(repr(e))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=solve, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    for i, Ts in got.items():
+        for T in Ts:
+            assert torch.equal(T, alone[i])
+    assert len(got) == 8
